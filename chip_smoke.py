@@ -10,8 +10,12 @@ toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure:
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
    one process per source, all started together;
 3. hold every kernel against its plain PyTorch version on the card, at the
-   main path's shape and at ragged shapes (tolerance below);
-4. time every kernel, its plain version and its byte/operation bound;
+   main path's shape, the SMACLite FP shape, T=1024, ragged shapes and inputs
+   that are not 16-byte aligned (tolerance below);
+4. time every kernel at the main path's shape and the SMACLite FP shape,
+   with its inputs warm in L2 and cold, beside its byte/operation bound, the
+   host's cost of a call, an empty launch timed the same way, and (at the
+   main shape) its plain version;
 5. drive the main path: HAPPO on planar HalfCheetah-6x1, 4096 envs × 32
    steps, MLP [64, 64], through ``OnPolicyRunner.train_iteration`` (3
    iterations; launch counts zeroed just before and read just after), then
@@ -54,6 +58,12 @@ F32_FLOPS_PER_S = 67e12
 
 MAIN = dict(n_envs=4096, episode_length=32, hidden=[64, 64], iterations=3)
 RETURNS_ENVS = 512
+# (label, T, trailing) of the timed kernel shapes: the main path's, and the
+# SMACLite 5m_vs_6m FP critic's (bench.py:257, 268: 256 envs x 5 agents, T=70)
+TIMED_SHAPES = (("main", MAIN["episode_length"], (MAIN["n_envs"], 1)),
+                ("smaclite_fp", 70, (256, 5, 1)))
+# Zeroing this many bytes between launches evicts the 50 MB L2.
+FLUSH_BYTES = 256 * 2 ** 20
 
 
 def log(msg: str) -> None:
@@ -79,7 +89,9 @@ def build_all() -> None:
 
 
 # ------------------------------------------------------------- kernel checks
-def returns_problem(T: int, trailing, with_bad: bool, seed: int, device):
+def returns_problem(T: int, trailing, with_bad: bool, seed: int, device, offset: int = 0):
+    """Inputs of the recursions; ``offset`` floats into their storage (1:
+    contiguous but not 16-byte aligned)."""
     g = torch.Generator().manual_seed(seed)
     shape = (T,) + tuple(trailing)
     shape1 = (T + 1,) + tuple(trailing)
@@ -87,7 +99,13 @@ def returns_problem(T: int, trailing, with_bad: bool, seed: int, device):
     values = torch.randn(shape1, generator=g)
     masks = (torch.rand(shape1, generator=g) > 0.15).float()
     bad = (torch.rand(shape1, generator=g) > 0.1).float() if with_bad else None
-    to = lambda x: None if x is None else x.to(device)
+
+    def to(x):
+        if x is None:
+            return None
+        view = torch.empty(x.numel() + offset, device=device)[offset:].view(x.shape)
+        return view.copy_(x)
+
     return to(rewards), to(values), to(masks), to(bad)
 
 
@@ -113,20 +131,25 @@ def kernel_cases():
 def check_kernels(device) -> dict:
     """Kernel against plain version at the main path's shape and ragged ones;
     returns the largest abs error per kernel at the main path's shape."""
-    main_shape = (MAIN["episode_length"], (MAIN["n_envs"], 1))
-    shapes = [main_shape, (9, (7, 1)), (9, (4, 3, 1)), (9, (130, 1)), (9, (5000, 1)),
-              (1, (1, 1))]
+    main_shape = (MAIN["episode_length"], (MAIN["n_envs"], 1), 0)
+    # (T, trailing, storage offset): the timed shapes, T=1024 over many ring
+    # stages, happo.yaml's defaults, ragged column tiles, misaligned inputs
+    shapes = [main_shape, (70, (256, 5, 1), 0), (1024, (4096, 1), 0), (200, (20, 1), 0),
+              (33, (1, 1), 0), (40, (4100, 1), 0), (24, (3000, 1), 0), (9, (7, 1), 0),
+              (9, (4, 3, 1), 0),
+              (9, (130, 1), 0), (9, (5000, 1), 0), (1, (1, 1), 0),
+              (MAIN["episode_length"], (MAIN["n_envs"], 1), 1), (70, (256, 5, 1), 1)]
     errs = {}
     for name, kern, plain, mk, _ in kernel_cases():
-        for T, trailing in shapes:
+        for T, trailing, offset in shapes:
             for with_bad in (True, False):
                 args = mk(*returns_problem(T, trailing, with_bad, seed=T + len(trailing),
-                                           device=device))
+                                           device=device, offset=offset))
                 out = kern(*args)
                 torch.cuda.synchronize()
                 ref = plain(*args)
                 torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-                if (T, trailing) == main_shape:
+                if (T, trailing, offset) == main_shape:
                     err = (out - ref).abs().max().item()
                     errs[name] = max(errs.get(name, 0.0), err)
         log(f"{name}: kernel == plain on {len(shapes) * 2} cases "
@@ -134,14 +157,15 @@ def check_kernels(device) -> dict:
     return errs
 
 
-def time_ms(fn, reps: int) -> tuple:
-    """(device ms per call, wall ms per call).
+def time_warm(fn, reps: int) -> tuple:
+    """(device ms a call, host µs to issue a call, µs a call with a sync).
 
     Device time: ``reps`` calls queued behind a spin kernel, between two
     CUDA events, so the host's cost of issuing them is hidden and the calls
-    run back to back; median of 5 rounds. Wall time: one call at a time
-    from an idle card, host cost and launch latency included; median of
-    ``reps`` calls.
+    run back to back with their inputs in L2; median of 5 rounds. Issue
+    time: the host's clock around the same ``reps`` calls, median of the 5
+    rounds. With a sync: one call at a time from an idle card, launch
+    latency and ``torch.cuda.synchronize()`` included; median of ``reps``.
     """
     for _ in range(3):
         fn()
@@ -151,14 +175,16 @@ def time_ms(fn, reps: int) -> tuple:
         fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    device, wall = [], []
+    device, issue, synced = [], [], []
     for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(3e9 * host_s) + 1000)  # ~1.5x the issue time at <= 2 GHz
         a.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        issue.append((time.perf_counter() - t0) / reps * 1e6)
         b.record()
         b.synchronize()
         device.append(a.elapsed_time(b) / reps)
@@ -166,40 +192,81 @@ def time_ms(fn, reps: int) -> tuple:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(device), statistics.median(wall)
+        synced.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(device), statistics.median(issue), statistics.median(synced)
+
+
+def time_cold(fn, reps: int, flush: torch.Tensor) -> float:
+    """Device ms of one call whose inputs are not in L2: before each call,
+    ``flush`` (larger than the L2) is zeroed; a pair of CUDA events around
+    the call alone keeps the flush out of the time. The zeroing takes longer
+    on the card than a call takes to issue, so the calls run from a full
+    queue, as in ``time_warm``. Median of ``reps`` calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(int(1e6))
+    for a, b in events:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def bound_ms(name: str, T: int, b: int) -> tuple:
     """Least time for the work at (T, b) with bad masks: every float the
-    recursion needs read once (rewards T·b, values (T+1)·b, masks and bad
-    rows 1..T, next_value b for the returns) and the output written once;
-    against ~8 float32 operations per element."""
-    floats = (T + (T + 1) + T + T + T) * b + (b if name == "discounted_returns" else 0)
+    recursion needs read once (rewards, masks and bad masks rows 1..T, T·b
+    each; values (T+1)·b for GAE, rows 0..T-1 and next_value b for the
+    returns) and the output T·b written once; against ~8 float32 operations
+    per element."""
+    floats = (5 * T + 1) * b
     t_bytes = floats * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = 8 * T * b / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(device) -> dict:
+def time_kernels(device, timed_shapes=TIMED_SHAPES) -> tuple:
+    """Per kernel: warm and cold device time at each (label, T, trailing) of
+    ``timed_shapes``, the bound and its share, host µs a call, and the plain
+    version at the first shape; and the floor: an empty launch
+    (``torch.cuda._sleep(1)``) timed the same two ways."""
     from harl_tpu_torch.ops import gae_kernels as K
 
-    T, trailing = MAIN["episode_length"], (MAIN["n_envs"], 1)
-    b = math.prod(trailing)
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    empty = lambda: torch.cuda._sleep(1)
+    floor = dict(ms=time_warm(empty, reps=200)[0], cold_ms=time_cold(empty, 50, flush))
+    print(f"empty launch: {floor['ms'] * 1e3:.2f} us back to back, {floor['cold_ms'] * 1e3:.2f} "
+          f"us alone after an L2 flush (the floor of any single launch)", flush=True)
     res = {}
     for name, kern, plain, mk, _ in kernel_cases():
-        args = mk(*returns_problem(T, trailing, True, seed=7, device=device))
         before = getattr(K, name).launches
-        ms, wall_ms = time_ms(lambda: kern(*args), reps=200)
-        plain_ms, plain_wall_ms = time_ms(lambda: plain(*args), reps=20)
+        shapes = []
+        for label, T, trailing in timed_shapes:
+            b = math.prod(trailing)
+            args = mk(*returns_problem(T, trailing, True, seed=7, device=device))
+            ms, host_us, sync_us = time_warm(lambda: kern(*args), reps=200)
+            ms_cold = time_cold(lambda: kern(*args), 50, flush)
+            bms, by = bound_ms(name, T, b)
+            shapes.append(dict(shape=label, T=T, b=b, ms=ms, ms_cold=ms_cold, bound_ms=bms,
+                               bound_by=by, share=bms / ms, share_cold=bms / ms_cold,
+                               host_us=host_us, sync_us=sync_us))
+            print(f"{name} at T={T}, b={b} ({label}): {ms * 1e3:.3f} us warm, "
+                  f"{ms_cold * 1e3:.3f} us cold on the device; bound {bms * 1e3:.3f} us ({by}), "
+                  f"share {bms / ms:.3f} warm, {bms / ms_cold:.3f} cold; host {host_us:.2f} us "
+                  f"to issue a call, {sync_us:.2f} us a call with a sync", flush=True)
+            if len(shapes) == 1:
+                plain_ms = time_warm(lambda: plain(*args), reps=20)[0]
         getattr(K, name).launches = before  # timing launches are not the main path's
-        bms, by = bound_ms(name, T, b)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        print(f"{name} at T={T}, b={b}: kernel {ms * 1e3:.2f} us on the device "
-              f"({wall_ms * 1e3:.2f} us a call from the host), plain version "
-              f"{plain_ms * 1e3:.1f} us ({plain_wall_ms * 1e3:.1f} us), bound {bms * 1e3:.3f} us "
-              f"({by}); no single PyTorch op computes the recurrence", flush=True)
-    return res
+        main = shapes[0]
+        res[name] = dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"], shapes=shapes)
+        print(f"{name} plain version at T={main['T']}, b={main['b']}: {plain_ms * 1e3:.1f} us; "
+              f"no single PyTorch op computes the recurrence", flush=True)
+    return res, floor
 
 
 # ------------------------------------------------------------- the main path
@@ -356,7 +423,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all()
     errs = check_kernels("cuda")
-    timing = time_kernels("cuda")
+    timing, floor = time_kernels("cuda")
     launches = drive_main_path(card)
     check_against_cpu()
     kernels = []
@@ -368,6 +435,10 @@ def main() -> int:
             launches=launches[name], max_abs_err=errs[name], ms=timing[name]["ms"],
             plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound_ms"],
             bound_by=timing[name]["bound_by"], library_ms=None,
+            ms_cold=timing[name]["shapes"][0]["ms_cold"],
+            host_us=timing[name]["shapes"][0]["host_us"],
+            floor_ms=floor["ms"], floor_cold_ms=floor["cold_ms"],
+            shapes=timing[name]["shapes"],
             parity=f"kernel == plain version at rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -23,16 +23,36 @@ def device():
     return torch.device("cuda")
 
 
-def _problem(T, trailing, with_bad, device, seed=0):
+def _on(x, device, offset):
+    """``x`` on ``device``, contiguous, starting ``offset`` floats into its
+    storage: offset 1 leaves it 4-byte but not 16-byte aligned."""
+    if x is None:
+        return None
+    flat = torch.empty(x.numel() + offset, device=device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _problem(T, trailing, with_bad, device, seed=0, offset=0):
     g = torch.Generator().manual_seed(seed)
     r = torch.randn((T,) + trailing, generator=g)
     v = torch.randn((T + 1,) + trailing, generator=g)
     m = (torch.rand((T + 1,) + trailing, generator=g) > 0.15).float()
     b = (torch.rand((T + 1,) + trailing, generator=g) > 0.1).float() if with_bad else None
-    return [None if x is None else x.to(device) for x in (r, v, m, b)]
+    return [_on(x, device, offset) for x in (r, v, m, b)]
 
 
-SHAPES = [(9, (7, 1)), (9, (4, 3, 1)), (9, (130, 1)), (32, (4096, 1)), (9, (5000, 1))]
+# (T, trailing): ragged column tiles (b = 7, 130, 3000, 4100, 5000 are no
+# multiple of the tile width the geometry picks: 8, 8, 16, 32, 32), the main
+# path's shape, the SMACLite FP layout (256 envs x 5 agents, T=70),
+# happo.yaml's defaults (20 envs, T=200), T=1024 over many ring stages, and
+# T=33 at b=1
+SHAPES = [(9, (7, 1)), (9, (4, 3, 1)), (9, (130, 1)), (32, (4096, 1)), (9, (5000, 1)),
+          (70, (256, 5, 1)), (200, (20, 1)), (1024, (4096, 1)), (33, (1, 1)),
+          (40, (4100, 1)), (24, (3000, 1))]
+# inputs at storage offset 1: the kernels copy 4 bytes at a time there
+MISALIGNED = [(32, (4096, 1)), (70, (256, 5, 1))]
 
 
 @pytest.mark.parametrize("T,trailing", SHAPES)
@@ -57,6 +77,23 @@ def test_returns_kernel_matches_plain(device, T, trailing, with_bad):
     torch.cuda.synchronize()
     assert K.discounted_returns.launches == before + 1
     torch.testing.assert_close(out, K.discounted_returns_reference(r, v, m, b, nv, 0.99),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,trailing", MISALIGNED)
+@pytest.mark.parametrize("with_bad", [True, False])
+def test_kernels_take_inputs_not_16_byte_aligned(device, T, trailing, with_bad):
+    r, v, m, b = _problem(T, trailing, with_bad, device, seed=2, offset=1)
+    assert r.data_ptr() % 16 != 0 and r.is_contiguous()
+    nv = _on(v[-1], device, 1)
+    before = (K.gae.launches, K.discounted_returns.launches)
+    out_gae = K.gae(r, v, m, b, 0.99, 0.95)
+    out_ret = K.discounted_returns(r, v, m, b, nv, 0.99)
+    torch.cuda.synchronize()
+    assert (K.gae.launches, K.discounted_returns.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out_gae, K.gae_reference(r, v, m, b, 0.99, 0.95),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(out_ret, K.discounted_returns_reference(r, v, m, b, nv, 0.99),
                                rtol=RTOL, atol=ATOL)
 
 
