@@ -23,7 +23,17 @@ toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure:
 6. profile one more main-path iteration with ``torch.profiler``: the
    device's busy share and its costliest kernels;
 7. check one small iteration on the card against the same iteration on the
-   CPU, from the same parameters and the same noise.
+   CPU, from the same parameters and the same noise;
+8. drive the recurrent discrete path: HAPPO on SMACLite 5m_vs_6m with the FP
+   state, GRU actors and critic, 256 envs × 70 steps, MLP [64, 64, 64]
+   (bench.py:257-268), 3 iterations with the launch counts zeroed just
+   before and read just after; then one more iteration split into rollout
+   and update, in which the GAE kernel's returns on the path's own inputs
+   (T=70, b=1280) are held against the plain version and timed; the device
+   ops of one env step and one rollout step, and one more iteration under
+   torch.profiler;
+9. check one small SMACLite iteration (3m, FP, GRU) on the card against the
+   same iteration on the CPU: actions, availability and masks equal.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -57,6 +67,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 MAIN = dict(n_envs=4096, episode_length=32, hidden=[64, 64], iterations=3)
+# the JAX package's recurrent bench configuration (bench.py:257-268)
+SMAC = dict(map_name="5m_vs_6m", n_envs=256, episode_length=70, hidden=[64, 64, 64],
+            data_chunk_length=10, iterations=3)
 RETURNS_ENVS = 512
 # (label, T, trailing) of the timed kernel shapes: the main path's, and the
 # SMACLite 5m_vs_6m FP critic's (bench.py:257, 268: 256 envs x 5 agents, T=70)
@@ -296,7 +309,8 @@ def check_metrics(metrics, n_agents: int) -> None:
         raise AssertionError(f"actor stats not finite: {stats.tolist()}")
 
 
-def profile_iteration(runner, state, card: str, plain_iteration_s: float) -> None:
+def profile_iteration(runner, state, card: str, plain_iteration_s: float,
+                      label: str = "main path") -> None:
     """One more iteration under torch.profiler: kernels launched, device
     busy time (the sum of kernel and copy times: one stream, no overlap),
     and the busy share against an unprofiled iteration's wall time."""
@@ -317,10 +331,12 @@ def profile_iteration(runner, state, card: str, plain_iteration_s: float) -> Non
         rows.append((us, ev.count, ev.key))
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
-        print(f"profile: no device time recorded by torch.profiler on {card}", flush=True)
+        print(f"profile ({label}): no device time recorded by torch.profiler on {card}",
+              flush=True)
         return
     launches = sum(r[1] for r in rows)
-    print(f"profile of one iteration: {launches} device ops, device busy {busy_s:.4f} s, "
+    print(f"profile of one {label} iteration: {launches} device ops, device busy "
+          f"{busy_s:.4f} s, "
           f"busy share {busy_s / plain_iteration_s:.4f} of an unprofiled iteration "
           f"({plain_iteration_s:.4f} s) on {card}", flush=True)
     for us, count, key in sorted(rows, reverse=True)[:12]:
@@ -386,6 +402,171 @@ def drive_main_path(card: str) -> dict:
     return launches
 
 
+def make_smaclite_runner(n_envs: int, T: int, hidden, device, noise=None,
+                         map_name: str = SMAC["map_name"],
+                         data_chunk_length: int = SMAC["data_chunk_length"],
+                         episode_limit=None):
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, env_args = get_defaults_yaml_args("happo", "smaclite")
+    algo_args["train"].update(n_rollout_threads=n_envs, episode_length=T,
+                              num_env_steps=10 ** 9)
+    algo_args["model"].update(hidden_sizes=list(hidden), use_recurrent_policy=True,
+                              recurrent_n=1, data_chunk_length=data_chunk_length)
+    env_args.update(map_name=map_name, state_type="FP")
+    if episode_limit:
+        env_args["episode_limit"] = episode_limit
+    return OnPolicyRunner({"algo": "happo", "env": "smaclite"}, algo_args, env_args,
+                          device=device, noise=noise)
+
+
+def count_device_ops(fn) -> tuple:
+    """(device ops, device ms) of one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            ops += ev.count
+            us += getattr(ev, "self_device_time_total", None) or getattr(
+                ev, "self_cuda_time_total", 0.0)
+    return ops, us / 1e3
+
+
+def drive_smaclite_path(card: str, device="cuda") -> tuple:
+    """The recurrent discrete path at the bench's widths; returns (launches
+    per kernel, the GAE kernel's shape, max |err| and warm ms on the path's
+    own inputs)."""
+    from harl_tpu_torch.ops import gae_kernels as K
+
+    n, T = SMAC["n_envs"], SMAC["episode_length"]
+    runner = make_smaclite_runner(n, T, SMAC["hidden"], device)
+    state = runner.init_state(0)
+    torch.cuda.synchronize()
+    K.gae.launches = 0
+    K.discounted_returns.launches = 0
+    times = []
+    for i in range(SMAC["iterations"]):
+        t0 = time.perf_counter()
+        state, metrics = runner.train_iteration(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_metrics(metrics, runner.n_agents)
+        if K.gae.launches != i + 1:
+            raise AssertionError(f"gae launched {K.gae.launches} times after {i + 1} iterations")
+        sums = {k: float(v) for k, v in metrics["episode_metric_sums"].items()}
+        log(f"smaclite iteration {i + 1}: {times[-1]:.3f} s, value_loss "
+            f"{float(metrics['value_loss']):.4f}, episodes {float(metrics['episode_count']):.0f}, "
+            f"metric sums {sums}")
+    launches = {"gae": K.gae.launches, "discounted_returns": K.discounted_returns.launches}
+    if launches["discounted_returns"] != 0:
+        raise AssertionError("the SMACLite GAE path launched the returns kernel")
+    steps_per_s = 2 * n * T / sum(times[1:])
+    print(f"smaclite path: HAPPO SMACLite {SMAC['map_name']} FP, GRU actors and critic, "
+          f"{n} envs x {T} steps, MLP {SMAC['hidden']}, chunks of {SMAC['data_chunk_length']}: "
+          f"{steps_per_s:.1f} env-steps/s over iterations 2-3 ({times[1]:.4f} s, "
+          f"{times[2]:.4f} s per iteration; first {times[0]:.4f} s); gae launched "
+          f"{launches['gae']} times (once an iteration) on {card}", flush=True)
+
+    # one more iteration, rollout and update timed apart; in between, the
+    # GAE kernel on this iteration's own inputs against the plain version
+    first_masks0 = state.carry.masks[:, 0]
+    t0 = time.perf_counter()
+    data = runner.rollout(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c = state.carry
+    last = (c.share_obs, c.masks, c.critic_rnn)
+    rewards, values, masks, bad = (
+        None if x is None else x.contiguous()
+        for x in runner.returns_inputs(state, data, first_masks0, *last))
+    if tuple(rewards.shape) != (T, n, runner.n_agents, 1):
+        raise AssertionError(f"GAE inputs of shape {tuple(rewards.shape)}")
+    args = (rewards, values, masks, bad, runner.gamma, runner.gae_lambda)
+    before = K.gae.launches
+    out = K.gae(*args)
+    torch.cuda.synchronize()
+    ref = K.gae_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    err = (out - ref).abs().max().item()
+    ms = time_warm(lambda: K.gae(*args), reps=200)[0]
+    K.gae.launches = before
+    print(f"gae on the smaclite path's own inputs (T={T}, b={rewards.numel() // T}): kernel == "
+          f"plain (max |err| {err:.3g}, rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); "
+          f"{ms * 1e3:.3f} us warm on the device on {card}", flush=True)
+    t2 = time.perf_counter()
+    runner.update_phase(state, data, first_masks0, *last)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"smaclite phases of one iteration: rollout {t1 - t0:.4f} s, update {t3 - t2:.4f} s "
+          f"on {card}", flush=True)
+
+    # device ops of one env step (auto-reset included) and one rollout step
+    actions = torch.randint(0, runner.env.n_actions, (n, runner.n_agents, 1), device=device)
+    env_ops, env_ms = count_device_ops(
+        lambda: runner.vec.step(state.carry.env_state, actions, runner.noise))
+    reset_ops, reset_ms = count_device_ops(lambda: runner.vec.reset(runner.noise))
+    with torch.no_grad():
+        step_ops, step_ms = count_device_ops(lambda: runner.rollout_step(state, state.carry))
+    print(f"smaclite device ops: one env step with auto-reset {env_ops} ops, {env_ms:.3f} ms "
+          f"device time (its reset alone {reset_ops} ops, {reset_ms:.3f} ms); one rollout step "
+          f"{step_ops} ops, {step_ms:.3f} ms, on {card}", flush=True)
+    profile_iteration(runner, state, card, times[-1], label="smaclite")
+    return launches, dict(T=T, b=rewards.numel() // T, ms=ms, max_abs_err=err)
+
+
+def check_smaclite_against_cpu(devices=("cpu", "cuda")) -> None:
+    """One small SMACLite iteration (3m, FP, GRU) on the card and on the CPU
+    from the same parameters and the same noise (drawn on the CPU)."""
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    runs, outs = [], []
+    for dev in devices:
+        noise = GeneratorNoise(torch.Generator().manual_seed(4), dev)
+        runner = make_smaclite_runner(8, 10, [16, 16], dev, noise=noise, map_name="3m",
+                                      data_chunk_length=5, episode_limit=8)
+        state = runner.init_state(0)
+        if runs:   # the card's runner starts from the CPU runner's parameters
+            cpu_state = runs[0][0]
+            for a, b in zip(state.actors + [state.critic], cpu_state.actors + [cpu_state.critic]):
+                a.net.load_state_dict(b.net.state_dict())
+        runs.append((state, runner))
+    for state, runner in runs:
+        first_masks0 = state.carry.masks[:, 0]
+        data = runner.rollout(state)
+        c = state.carry
+        metrics = runner.update_phase(state, data, first_masks0, c.share_obs, c.masks,
+                                      c.critic_rnn)
+        outs.append((state, data, metrics))
+    torch.cuda.synchronize()
+    (s_cpu, d_cpu, m_cpu), (s_gpu, d_gpu, m_gpu) = outs
+    close = lambda a, b: torch.testing.assert_close(
+        torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
+    for k in ("avail", "masks", "active_masks", "next_masks", "next_bad_masks"):
+        if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
+            raise AssertionError(f"smaclite {k}: card != CPU")
+    for a, b in zip(d_gpu["actions"], d_cpu["actions"]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("smaclite actions: card != CPU")
+    for k in ("obs", "share_obs", "value", "reward", "critic_rnn"):
+        close(d_gpu[k], d_cpu[k])
+    for k in ("value_loss", "critic_grad_norm", "mean_step_reward", "episode_return_sum"):
+        close(m_gpu[k], m_cpu[k])
+    close(m_gpu["actor_stats"], m_cpu["actor_stats"])
+    for a, b in zip(s_gpu.actors + [s_gpu.critic], s_cpu.actors + [s_cpu.critic]):
+        for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
+            close(va, vb)
+    log(f"small SMACLite iteration: card == CPU (actions, availability and masks equal; "
+        f"floats at rtol {E2E_RTOL}, atol {E2E_ATOL}); "
+        f"{float(d_cpu['emitted_cnt'].sum()):.0f} episodes ended")
+
+
 def check_against_cpu(devices=("cpu", "cuda")) -> None:
     """One small iteration on the card and on the CPU from the same
     parameters and the same noise (drawn on the CPU for both)."""
@@ -426,19 +607,30 @@ def main() -> int:
     timing, floor = time_kernels("cuda")
     launches = drive_main_path(card)
     check_against_cpu()
+    smac_launches, smac_gae = drive_smaclite_path(card)
+    check_smaclite_against_cpu()
+    by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
+        extra = {}
+        if name == "gae":
+            if smac_launches["gae"] < 1:
+                raise AssertionError("gae was not launched on the SMACLite path")
+            extra = dict(smaclite_in_situ=smac_gae)
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name], ms=timing[name]["ms"],
+            launches=sum(p[name] for p in by_path.values()),
+            launches_by_path={path: p[name] for path, p in by_path.items()},
+            max_abs_err=max(errs[name], extra.get("smaclite_in_situ", {}).get("max_abs_err", 0.0)),
+            ms=timing[name]["ms"],
             plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound_ms"],
             bound_by=timing[name]["bound_by"], library_ms=None,
             ms_cold=timing[name]["shapes"][0]["ms_cold"],
             host_us=timing[name]["shapes"][0]["host_us"],
             floor_ms=floor["ms"], floor_cold_ms=floor["cold_ms"],
-            shapes=timing[name]["shapes"],
+            shapes=timing[name]["shapes"], **extra,
             parity=f"kernel == plain version at rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

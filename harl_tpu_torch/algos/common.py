@@ -1,5 +1,6 @@
 """Shared algorithm plumbing (counterpart of ``harl_tpu/algos/common.py``):
-train states, the optimizer, losses and ratio aggregation."""
+train states, the optimizer, losses, ratio aggregation, and how an update
+cuts its batch into minibatch rows."""
 from __future__ import annotations
 
 import dataclasses
@@ -95,3 +96,57 @@ def aggregate_ratio(delta_logp: torch.Tensor, action_aggregation: str) -> torch.
     if action_aggregation == "mean":
         return r.mean(dim=-1, keepdim=True)
     raise ValueError(action_aggregation)
+
+
+def flat(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def time_major(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.transpose(0, 1)
+
+
+class Chunking:
+    """How an update cuts a (T, B, ·) batch into minibatch rows: T·B steps,
+    or C = B·T/L chunks of L steps for a recurrent network
+    (on_policy_actor_buffer.py:180-326)."""
+
+    def __init__(self, cfg: dict):
+        self.use_recurrent_policy = cfg.get("use_recurrent_policy", False)
+        self.use_rnn = self.use_recurrent_policy or cfg.get("use_naive_recurrent_policy", False)
+        self.data_chunk_length = cfg.get("data_chunk_length", 10)
+
+    def chunk_length(self, T: int) -> int:
+        L = self.data_chunk_length if self.use_recurrent_policy else T
+        if T % L:
+            raise ValueError(f"episode_length {T} is not a multiple of data_chunk_length {L}")
+        return L
+
+    def rows(self, T: int, B: int) -> int:
+        """Minibatch rows of a (T, B) batch: what a shuffle permutes."""
+        return B * (T // self.chunk_length(T)) if self.use_rnn else T * B
+
+    def prep(self, x: Optional[torch.Tensor], T: int) -> Optional[torch.Tensor]:
+        """(T, B, …) → rows: (T·B, …) or (C, L, …)."""
+        if x is None or not self.use_rnn:
+            return flat(x)
+        L = self.chunk_length(T)
+        x = x.transpose(0, 1)
+        return x.reshape((-1, L) + tuple(x.shape[2:]))
+
+    def first_states(self, rnn_states: torch.Tensor, T: int) -> torch.Tensor:
+        """Each chunk's initial hidden state (C, recurrent_n, H)."""
+        L = self.chunk_length(T)
+        r = rnn_states.transpose(0, 1)[:, ::L]
+        return r.reshape((-1,) + tuple(rnn_states.shape[2:]))
+
+    def steps(self, epochs: int, num_mini_batch: int, M: int,
+              perms: Optional[torch.Tensor]):
+        """Per-step row indices (None: the whole batch) for ``epochs`` ×
+        ``num_mini_batch`` minibatches from the per-epoch shuffles."""
+        if num_mini_batch == 1:
+            # a full-batch gradient does not depend on the order: no gather
+            return [None] * epochs
+        if perms is None or tuple(perms.shape) != (epochs, M):
+            raise ValueError(f"need perms of shape {(epochs, M)}")
+        return list(perms.reshape(epochs * num_mini_batch, M // num_mini_batch))

@@ -4,7 +4,9 @@ Clipped value loss with optional Huber and ValueNorm target normalisation
 (v_critic.py:75-114), ``critic_epoch`` × ``critic_num_mini_batch``
 minibatches, clipped Adam, loss scaled by ``value_loss_coef``. The ValueNorm
 statistics are updated per minibatch *before* the loss is evaluated, the
-reference's ordering (v_critic.py:93-96). Feed-forward path only.
+reference's ordering (v_critic.py:93-96). A recurrent critic uses the actor's
+chunked-BPTT rows (``algos/common.py:Chunking``); under the FP state the batch
+axis is env × agent.
 """
 from __future__ import annotations
 
@@ -12,23 +14,23 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from harl_tpu_torch.algos.common import AgentTrainState, huber_loss, mse_loss
+from harl_tpu_torch.algos.common import (AgentTrainState, Chunking, huber_loss, mse_loss,
+                                         time_major)
 from harl_tpu_torch.ops.value_norm import ValueNormState, normalize, update_value_norm
 
 
 class CriticBatch(NamedTuple):
-    """Critic rollout slice, time-major (T, B, ·) (EP state layout)."""
+    """Critic rollout slice, time-major (T, B, ·); B is B·N under FP."""
 
     share_obs: torch.Tensor    # (T, B, ds)
     value_preds: torch.Tensor  # (T, B, 1)
     returns: torch.Tensor      # (T, B, 1)
+    rnn_states: Optional[torch.Tensor] = None  # (T, B, recurrent_n, H) at step input
+    masks: Optional[torch.Tensor] = None       # (T, B, 1)
 
 
 class VCritic:
     def __init__(self, cfg: dict):
-        if cfg.get("use_recurrent_policy") or cfg.get("use_naive_recurrent_policy"):
-            raise NotImplementedError(
-                "recurrent critic updates are not ported yet (ROADMAP.md, recurrent discrete path)")
         self.clip_param = cfg["clip_param"]
         self.critic_epoch = cfg["critic_epoch"]
         self.num_mini_batch = cfg["critic_num_mini_batch"]
@@ -36,6 +38,7 @@ class VCritic:
         self.use_clipped_value_loss = cfg.get("use_clipped_value_loss", True)
         self.use_huber_loss = cfg.get("use_huber_loss", True)
         self.huber_delta = cfg.get("huber_delta", 10.0)
+        self.chunking = Chunking(cfg)
 
     def value_loss(self, values, value_preds, returns,
                    vn: Optional[ValueNormState]) -> torch.Tensor:
@@ -59,25 +62,25 @@ class VCritic:
                ) -> Tuple[Optional[ValueNormState], torch.Tensor]:
         """Train the critic in place; returns (new ValueNorm state,
         [value_loss, grad_norm] averaged over steps). ``perms``
-        (critic_epoch, T·B) is needed only with more than one minibatch."""
+        (critic_epoch, rows) is needed only with more than one minibatch."""
         T, B = batch.share_obs.shape[:2]
-        M = T * B
-        data = [x.reshape((M,) + tuple(x.shape[2:]))
-                for x in (batch.share_obs, batch.value_preds, batch.returns)]
-        if self.num_mini_batch == 1:
-            steps = [None] * self.critic_epoch
-        else:
-            if perms is None or tuple(perms.shape) != (self.critic_epoch, M):
-                raise ValueError(f"need perms of shape {(self.critic_epoch, M)}")
-            steps = list(perms.reshape(self.critic_epoch * self.num_mini_batch,
-                                       M // self.num_mini_batch))
+        ch = self.chunking
+        data = [ch.prep(x, T) for x in (batch.share_obs, batch.value_preds, batch.returns,
+                                        batch.masks if ch.use_rnn else None)]
+        rnn0 = ch.first_states(batch.rnn_states, T) if ch.use_rnn else None
         stats = []
-        for idx in steps:
-            share_obs, value_preds, returns = (
-                data if idx is None else [x[idx] for x in data])
+        for idx in ch.steps(self.critic_epoch, self.num_mini_batch, ch.rows(T, B), perms):
+            share_obs, value_preds, returns, masks = (
+                data if idx is None else [None if x is None else x[idx] for x in data])
             if vn is not None:
                 vn = update_value_norm(vn, returns)
-            loss = self.value_loss(state.net(share_obs), value_preds, returns, vn)
+            if rnn0 is not None:
+                h0 = rnn0 if idx is None else rnn0[idx]
+                values, _ = state.net(time_major(share_obs), h0, time_major(masks), seq=True)
+                value_preds, returns = time_major(value_preds), time_major(returns)
+            else:
+                values, _ = state.net(share_obs)
+            loss = self.value_loss(values, value_preds, returns, vn)
             state.opt.zero_grad()
             (loss * self.value_loss_coef).backward()
             gnorm = state.opt.step()

@@ -1,11 +1,17 @@
 """HAPPO actor update (counterpart of ``harl_tpu/algos/happo.py``).
 
-One ``update`` call is the reference ``HAPPO.train`` for one agent,
-feed-forward path: EP advantage normalisation with the agent's active mask
-(happo.py:122-127), ``ppo_epoch`` × ``actor_num_mini_batch`` minibatches,
-the PPO-clip surrogate weighted by the HARL factor with active-mask
-normalisation (happo.py:66-91), the entropy bonus and the clipped Adam step.
-The recurrent paths are on the roadmap.
+One ``update`` call is the reference ``HAPPO.train`` for one agent: EP
+advantage normalisation with the agent's active mask (happo.py:122-127; under
+FP the runner has normalised once across agents), ``ppo_epoch`` ×
+``actor_num_mini_batch`` minibatches, the PPO-clip surrogate weighted by the
+HARL factor with active-mask normalisation (happo.py:66-91), the entropy
+bonus and the clipped Adam step.
+
+Minibatch rows: feed-forward, the T·B steps; recurrent, chunks of
+``data_chunk_length`` L steps (chunked BPTT, recurrent_generator_actor): the
+(T, B, ·) batch is cut per env into C = B·T/L chunks, each run through the GRU
+in sequence mode from the hidden state the rollout stored at its first step.
+The naive-recurrent path is the L = T case (whole env threads).
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from harl_tpu_torch.algos.common import AgentTrainState, aggregate_ratio
+from harl_tpu_torch.algos.common import (AgentTrainState, Chunking, aggregate_ratio,
+                                         flat, time_major)
 from harl_tpu_torch.models.act import act_evaluate
 from harl_tpu_torch.ops.returns import normalize_advantages_masked
 
@@ -25,10 +32,9 @@ class ActorBatch(NamedTuple):
     actions: torch.Tensor       # (T, B, act_dim)
     logp: torch.Tensor          # (T, B, lp) — behavior log-probs from rollout
     active_masks: torch.Tensor  # (T, B, 1)
-
-
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape((-1,) + tuple(x.shape[2:]))
+    rnn_states: Optional[torch.Tensor] = None         # (T, B, recurrent_n, H) at step input
+    masks: Optional[torch.Tensor] = None              # (T, B, 1)
+    available_actions: Optional[torch.Tensor] = None  # (T, B, n_actions)
 
 
 class HAPPOActor:
@@ -36,9 +42,6 @@ class HAPPOActor:
     the ``AgentTrainState`` passed to ``update``."""
 
     def __init__(self, action_space, cfg: dict):
-        if cfg.get("use_recurrent_policy") or cfg.get("use_naive_recurrent_policy"):
-            raise NotImplementedError(
-                "recurrent actor updates are not ported yet (ROADMAP.md, recurrent discrete path)")
         self.action_space = action_space
         self.clip_param = cfg.get("clip_param", 0.2)
         self.ppo_epoch = cfg["ppo_epoch"]
@@ -48,40 +51,46 @@ class HAPPOActor:
         self.action_aggregation = cfg.get("action_aggregation", "prod")
         self.std_x_coef = cfg.get("std_x_coef", 1.0)
         self.std_y_coef = cfg.get("std_y_coef", 0.5)
+        self.chunking = Chunking(cfg)
 
     @torch.no_grad()
     def evaluate_logp(self, policy, batch: ActorBatch) -> torch.Tensor:
         """Full-batch log-probs of the stored actions, (T·B, lp)
-        (on_policy_ha_runner.py:66-83,96-113)."""
-        head = policy(_flat(batch.obs))
-        ev = act_evaluate(head, self.action_space, _flat(batch.actions),
-                          _flat(batch.active_masks), self.std_x_coef, self.std_y_coef)
+        (on_policy_ha_runner.py:66-83,96-113). A recurrent policy runs the
+        whole rollout in sequence mode from ``rnn_states[0]``."""
+        if self.chunking.use_rnn:
+            head, _ = policy(batch.obs, batch.rnn_states[0], batch.masks, seq=True)
+            ev = act_evaluate(head, self.action_space, batch.actions, batch.available_actions,
+                              batch.active_masks, self.std_x_coef, self.std_y_coef)
+            return flat(ev.log_probs)
+        head, _ = policy(flat(batch.obs))
+        ev = act_evaluate(head, self.action_space, flat(batch.actions),
+                          flat(batch.available_actions), flat(batch.active_masks),
+                          self.std_x_coef, self.std_y_coef)
         return ev.log_probs
 
     def update(self, state: AgentTrainState, batch: ActorBatch,
                advantages: torch.Tensor, factor: torch.Tensor,
-               perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+               perms: Optional[torch.Tensor] = None, state_type: str = "EP") -> torch.Tensor:
         """Train one agent in place. ``advantages`` and ``factor`` are
-        (T, B, 1); ``perms`` (ppo_epoch, T·B) gives each epoch's shuffle and
-        is needed only with more than one minibatch. Returns the mean over
-        steps of [policy_loss, dist_entropy, grad_norm, ratio]."""
+        (T, B, 1); ``perms`` (ppo_epoch, rows) gives each epoch's shuffle of
+        the minibatch rows (``chunking.rows``) and is needed only with more
+        than one minibatch. Returns the mean over steps of [policy_loss,
+        dist_entropy, grad_norm, ratio]."""
         T, B = batch.obs.shape[:2]
-        advantages = normalize_advantages_masked(advantages, batch.active_masks)
-        M = T * B
-        data = [_flat(x) for x in (batch.obs, batch.actions, batch.logp,
-                                   batch.active_masks, advantages, factor)]
-        if self.num_mini_batch == 1:
-            # a full-batch gradient does not depend on the order: no gather
-            steps = [None] * self.ppo_epoch
-        else:
-            if perms is None or tuple(perms.shape) != (self.ppo_epoch, M):
-                raise ValueError(f"need perms of shape {(self.ppo_epoch, M)}")
-            steps = list(perms.reshape(self.ppo_epoch * self.num_mini_batch,
-                                       M // self.num_mini_batch))
+        ch = self.chunking
+        if state_type == "EP":
+            advantages = normalize_advantages_masked(advantages, batch.active_masks)
+        data = [ch.prep(x, T) for x in (batch.obs, batch.actions, batch.logp,
+                                        batch.active_masks, advantages, factor,
+                                        batch.masks if ch.use_rnn else None,
+                                        batch.available_actions)]
+        rnn0 = ch.first_states(batch.rnn_states, T) if ch.use_rnn else None
         stats = []
-        for idx in steps:
-            mb = data if idx is None else [x[idx] for x in data]
-            policy_loss, entropy, ratio = self._loss(state.net, *mb)
+        for idx in ch.steps(self.ppo_epoch, self.num_mini_batch, ch.rows(T, B), perms):
+            mb = data if idx is None else [None if x is None else x[idx] for x in data]
+            h0 = rnn0 if idx is None or rnn0 is None else rnn0[idx]
+            policy_loss, entropy, ratio = self._loss(state.net, h0, *mb)
             state.opt.zero_grad()
             (policy_loss - entropy * self.entropy_coef).backward()
             gnorm = state.opt.step()
@@ -89,9 +98,15 @@ class HAPPOActor:
                                       ratio.detach()]))
         return torch.stack(stats).mean(dim=0)
 
-    def _loss(self, policy, obs, actions, old_logp, active, adv, fac):
-        head = policy(obs)
-        ev = act_evaluate(head, self.action_space, actions, active,
+    def _loss(self, policy, rnn0, obs, actions, old_logp, active, adv, fac, masks, avail):
+        if rnn0 is not None:
+            # (mb, L, …) → time-major (L, mb, …) for the GRU's sequence mode
+            head, _ = policy(time_major(obs), rnn0, time_major(masks), seq=True)
+            actions, old_logp, active, adv, fac, avail = map(
+                time_major, (actions, old_logp, active, adv, fac, avail))
+        else:
+            head, _ = policy(obs)
+        ev = act_evaluate(head, self.action_space, actions, avail, active,
                           self.std_x_coef, self.std_y_coef)
         ratio = aggregate_ratio(ev.log_probs - old_logp, self.action_aggregation)
         surr1 = ratio * adv

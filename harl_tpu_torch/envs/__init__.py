@@ -1,6 +1,7 @@
 """Environment registry (counterpart of ``harl_tpu/envs/__init__.py``).
 
-Only the planar ``mamujoco_jax`` scenarios are ported; every other env raises
+Ported: the planar ``mamujoco_jax`` scenarios and the pure-tensor
+``smaclite`` maps (fixed compositions). Every other env raises
 ``NotImplementedError`` naming its roadmap item.
 """
 from __future__ import annotations
@@ -19,6 +20,13 @@ def make_env(env_name: str, env_args: dict, device: DeviceLike = None):
         raise NotImplementedError(
             f"mamujoco_jax scenario {scenario!r} is not ported yet "
             "(ROADMAP.md, remaining pure-JAX envs)")
+    if env_name == "smaclite":
+        from harl_tpu_torch.envs.smaclite.smaclite import make_smaclite
+
+        kwargs = {k: env_args[k] for k in ("episode_limit", "state_type", "reward_scale")
+                  if k in env_args}
+        return make_smaclite(env_args.get("map_name", "5m_vs_5m"), resolve_device(device),
+                             **kwargs)
     raise NotImplementedError(
-        f"env {env_name!r} is not ported yet (ROADMAP.md, the recurrent "
-        "discrete path, the remaining pure-JAX envs, tooling)")
+        f"env {env_name!r} is not ported yet (ROADMAP.md, the remaining pure-JAX "
+        "envs, tooling)")

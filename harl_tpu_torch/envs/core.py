@@ -9,12 +9,12 @@ NamedTuple of tensors with X first, and
 
 ``auto_reset_step`` keeps the JAX semantics (core.py:49-78): a fresh reset
 state is drawn for EVERY env on EVERY step and selected with ``where`` where
-the env finished, so the returned obs/state start a new episode while
-rewards/dones/bad_transition describe the finishing step.
+the env finished, so the returned obs/state/availability start a new episode
+while rewards/dones/bad_transition/metrics describe the finishing step.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,6 +25,9 @@ class TimeStep(NamedTuple):
     rewards: torch.Tensor            # (X, n_agents, 1)
     dones: torch.Tensor              # (X, n_agents) bool
     bad_transition: torch.Tensor     # (X,) bool — truncation flag
+    available_actions: Optional[torch.Tensor] = None  # (X, n_agents, n_actions)
+    agent_state: Optional[torch.Tensor] = None        # (X, n_agents, ds_fp) — FP state
+    metrics: Optional[Dict[str, torch.Tensor]] = None  # per env, e.g. {"won": (X,)}
 
 
 class Transition(NamedTuple):
@@ -35,7 +38,10 @@ class Transition(NamedTuple):
     final: TimeStep
 
 
-def _where_done(done_env: torch.Tensor, reset: torch.Tensor, cont: torch.Tensor):
+def _where_done(done_env: torch.Tensor, reset: Optional[torch.Tensor],
+                cont: Optional[torch.Tensor]):
+    if cont is None:
+        return None
     return torch.where(done_env.reshape((-1,) + (1,) * (cont.dim() - 1)), reset, cont)
 
 
@@ -46,9 +52,9 @@ def auto_reset_step(env, state, actions: torch.Tensor, reset_noise) -> Transitio
     reset_state, reset_ts = env.reset(reset_noise)
     new_state = type(next_state)(
         *(_where_done(done_env, r, c) for r, c in zip(reset_state, next_state)))
-    post = ts._replace(
-        obs=_where_done(done_env, reset_ts.obs, ts.obs),
-        share_obs=_where_done(done_env, reset_ts.share_obs, ts.share_obs))
+    post = ts._replace(**{
+        k: _where_done(done_env, getattr(reset_ts, k), getattr(ts, k))
+        for k in ("obs", "share_obs", "available_actions", "agent_state")})
     return Transition(new_state, post, ts)
 
 

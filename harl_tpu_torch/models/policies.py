@@ -1,37 +1,57 @@
 """Policy models (counterpart of ``harl_tpu/models/policies.py``).
 
-``StochasticPolicy``, MLP path: MLPBase → ACTLayer. The GRU and CNN paths
-are on the roadmap.
+``StochasticPolicy``: MLPBase → optional GRU → ACTLayer. The CNN path is on
+the roadmap.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from harl_tpu_torch.models.act import ACTLayer
 from harl_tpu_torch.models.mlp import MLPBase
+from harl_tpu_torch.models.rnn import GRUStack
+
+
+def recurrent_inputs(x: torch.Tensor, rnn_states: Optional[torch.Tensor],
+                     masks: Optional[torch.Tensor], recurrent_n: int, hidden: int):
+    """Zero hidden states and unit masks where the caller passes none
+    (policies.py:55-60): hidden (N, recurrent_n, H) for the batch axis N."""
+    if rnn_states is None:
+        rnn_states = x.new_zeros((x.shape[-2], recurrent_n, hidden))
+    if masks is None:
+        masks = x.new_ones(x.shape[:-1] + (1,))
+    return rnn_states, masks
 
 
 class StochasticPolicy(nn.Module):
-    """MLPBase → ACTLayer (stochastic_policy.py:14-86); ``forward(obs)`` →
-    head outputs (mean, log_std)."""
+    """MLPBase → optional GRU → ACTLayer (stochastic_policy.py:14-86).
+
+    ``forward(obs, rnn_states, masks, seq)`` → (head outputs, new rnn
+    states); the states pass through unchanged (None) without a GRU."""
 
     def __init__(self, obs_dim: int, action_space, hidden_sizes: Sequence[int] = (128, 128),
                  activation_func: str = "relu", use_feature_normalization: bool = True,
                  initialization_method: str = "orthogonal_", gain: float = 0.01,
-                 use_recurrent_policy: bool = False, std_x_coef: float = 1.0,
-                 device=None, generator=None):
+                 use_recurrent_policy: bool = False, recurrent_n: int = 1,
+                 std_x_coef: float = 1.0, device=None, generator=None):
         super().__init__()
-        if use_recurrent_policy:
-            raise NotImplementedError(
-                "recurrent policies are not ported yet (ROADMAP.md, recurrent discrete path)")
         self.base = MLPBase(obs_dim, hidden_sizes, activation_func,
                             use_feature_normalization, initialization_method,
                             device, generator)
+        self.rnn = (GRUStack(hidden_sizes[-1], hidden_sizes[-1], recurrent_n, device, generator)
+                    if use_recurrent_policy else None)
         self.act = ACTLayer(hidden_sizes[-1], action_space, initialization_method,
                             gain, std_x_coef, device, generator)
 
-    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.act(self.base(obs))
+    def forward(self, obs: torch.Tensor, rnn_states: Optional[torch.Tensor] = None,
+                masks: Optional[torch.Tensor] = None,
+                seq: bool = False) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+        x = self.base(obs)
+        if self.rnn is not None:
+            rnn_states, masks = recurrent_inputs(x, rnn_states, masks, self.rnn.recurrent_n,
+                                                 self.rnn.hidden_size)
+            x, rnn_states = self.rnn(x, rnn_states, masks, seq)
+        return self.act(x), rnn_states

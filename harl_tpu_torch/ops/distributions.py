@@ -1,20 +1,68 @@
 """Action distributions (counterpart of ``harl_tpu/ops/distributions.py``).
 
-Only the on-policy Box head is ported: ``DiagGaussian`` with a
-state-independent learnable log_std parameterised as
-``sigmoid(log_std / std_x_coef) * std_y_coef`` (distributions.py:76-89).
-Sampling takes the standard-normal noise as an argument, so a caller (or a
-test) decides where the noise comes from. Categorical and the squashed
-Gaussian are on the roadmap.
+The on-policy heads are ported:
+
+* ``Categorical`` over logits with unavailable actions masked to −1e10
+  (distributions.py:51-55); sampling is Gumbel-max, ``argmax(logits + g)``
+  with standard Gumbel noise ``g`` passed in, which is how
+  ``jax.random.categorical`` samples;
+* ``DiagGaussian`` with a state-independent learnable log_std parameterised
+  as ``sigmoid(log_std / std_x_coef) * std_y_coef`` (distributions.py:76-89);
+  sampling takes standard-normal noise as an argument.
+
+So a caller (or a test) decides where the noise comes from. The squashed
+Gaussian and ST-Gumbel of the off-policy stack are on the roadmap.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
+MASK_LOGIT = -1e10
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def mask_logits(logits: torch.Tensor, available_actions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Set logits of unavailable actions to −1e10 (distributions.py:51-55)."""
+    if available_actions is None:
+        return logits
+    return torch.where(available_actions == 0, MASK_LOGIT, logits)
+
+
+@dataclasses.dataclass
+class Categorical:
+    """Categorical over the last axis of ``logits`` (already masked)."""
+
+    logits: torch.Tensor  # (..., n)
+
+    def log_probs_all(self) -> torch.Tensor:
+        return torch.log_softmax(self.logits, dim=-1)
+
+    def sample(self, gumbel: torch.Tensor) -> torch.Tensor:
+        """Gumbel-max sample (..., 1) for standard Gumbel noise (..., n)."""
+        return torch.argmax(self.logits + gumbel, dim=-1, keepdim=True)
+
+    def mode(self) -> torch.Tensor:
+        return torch.argmax(self.logits, dim=-1, keepdim=True)
+
+    def log_prob(self, action: torch.Tensor) -> torch.Tensor:
+        """Log-prob of integer actions (..., 1) → (..., 1)."""
+        return torch.take_along_dim(self.log_probs_all(), action.long(), dim=-1)
+
+    def entropy(self) -> torch.Tensor:
+        """−Σ p·log p, shape (...,). A masked action has p = 0 exactly and
+        log p ≈ −1e10: the ``p > 0`` guard keeps 0·(−1e10) out of the sum."""
+        lp = self.log_probs_all()
+        p = torch.exp(lp)
+        return -torch.where(p > 0, p * lp, 0.0).sum(dim=-1)
+
+
+def categorical(logits: torch.Tensor,
+                available_actions: Optional[torch.Tensor] = None) -> Categorical:
+    return Categorical(mask_logits(logits, available_actions))
 
 
 @dataclasses.dataclass

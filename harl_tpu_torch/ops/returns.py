@@ -1,7 +1,9 @@
 """Return / advantage computation (counterpart of ``harl_tpu/ops/returns.py``).
 
 Callers pass *denormalized* value predictions. Time is axis 0, everything
-else is batched. ``compute_gae`` and ``compute_discounted_returns`` dispatch
+else is batched: (T, B, 1) under the EP state, (T, B, N, 1) per agent under
+FP, which the kernels see as B·N columns. ``compute_gae`` and
+``compute_discounted_returns`` dispatch
 on the tensors' device through the wrappers of ``ops/gae_kernels.py``: the
 CUDA kernel for CUDA tensors, the plain version for CPU tensors. The JAX
 package's ``impl="assoc"`` prefix-scan form is not ported (ROADMAP.md).

@@ -4,8 +4,10 @@ Takes the flax parameter trees as nested dicts of numpy arrays (convert with
 ``jax.tree.map(np.asarray, params)`` on the JAX side), so this module never
 imports JAX. A flax ``Dense.kernel`` is (in, out) and a torch
 ``Linear.weight`` (out, in), so kernels are transposed; LayerNorm
-``scale``/``bias`` map to ``weight``/``bias``. Covers ``StochasticPolicy``
-(MLP, Box head) and ``VNet`` (MLP).
+``scale``/``bias`` map to ``weight``/``bias``. The GRU's fused weights
+(``rnn/wi{i}``, ``wh{i}``, ``bi{i}``, ``bh{i}``) keep the flax layout and copy
+as they are, its output LayerNorm is ``rnn/norm``. Covers ``StochasticPolicy``
+(MLP, optional GRU, Box or Discrete head) and ``VNet`` (MLP, optional GRU).
 """
 from __future__ import annotations
 
@@ -39,22 +41,33 @@ def _mlp_base(p: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _gru(p: Mapping) -> Dict[str, torch.Tensor]:
+    out = {f"rnn.{k}": _t(v) for k, v in p.items() if k != "norm"}
+    out.update(_layer_norm("rnn.norm", p["norm"]))
+    return out
+
+
 def _params(tree: Mapping) -> Mapping:
     return tree["params"] if "params" in tree else tree
 
 
 def policy_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``StochasticPolicy`` (MLP path, Box head) parameters."""
+    """``StochasticPolicy`` parameters: MLP, optional GRU, Box or Discrete head."""
     p = _params(flax_params)
     out = _mlp_base(p["base"])
+    if "rnn" in p:
+        out.update(_gru(p["rnn"]))
     out.update(_dense("act.head", p["act"]["head"]))
-    out["act.log_std"] = _t(p["act"]["log_std"])
+    if "log_std" in p["act"]:
+        out["act.log_std"] = _t(p["act"]["log_std"])
     return out
 
 
 def vnet_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``VNet`` (MLP path) parameters."""
+    """``VNet`` parameters: MLP, optional GRU."""
     p = _params(flax_params)
     out = _mlp_base(p["base"])
+    if "rnn" in p:
+        out.update(_gru(p["rnn"]))
     out.update(_dense("v_out", p["v_out"]))
     return out

@@ -2,10 +2,11 @@
 
 The JAX package derives every draw from explicit PRNG keys. The port draws
 from one ``torch.Generator`` per runner through a noise source, an object
-with three methods that the runner and the vectorised env call in a fixed
+with four methods that the runner and the vectorised env call in a fixed
 order each training iteration:
 
-    action_noise(shape)                standard normal, one call per agent per step
+    action_noise(shape)                standard normal, one call per Box agent per step
+    gumbel_noise(shape)                standard Gumbel, one call per Discrete agent per step
     reset_noise(n_envs, dof)           (uniform [0, 1), standard normal), (n_envs, dof) each
     permutation(n)                     a random permutation of range(n)
 
@@ -32,6 +33,13 @@ class GeneratorNoise:
     def action_noise(self, shape: Sequence[int]) -> torch.Tensor:
         return self._out(torch.randn(tuple(shape), generator=self.generator,
                                      device=self.generator.device))
+
+    def gumbel_noise(self, shape: Sequence[int]) -> torch.Tensor:
+        """−log(−log u), u uniform on [tiny, 1), as ``jax.random.gumbel``."""
+        g = self.generator
+        u = torch.rand(tuple(shape), generator=g, device=g.device)
+        u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
+        return self._out(-torch.log(-torch.log(u)))
 
     def reset_noise(self, n_envs: int, dof: int) -> Tuple[torch.Tensor, torch.Tensor]:
         g = self.generator

@@ -190,7 +190,7 @@ def test_value_norm_is_updated_before_the_critic_loss():
     tnet = VNet(DS, HIDDEN, device="cpu")
     tnet.load_state_dict(convert.vnet_state_dict(_np_tree(params)))
     with torch.no_grad():
-        values = tnet(tbatch.share_obs.reshape(-1, DS))
+        values, _ = tnet(tbatch.share_obs.reshape(-1, DS))
         vp, ret = tbatch.value_preds.reshape(-1, 1), tbatch.returns.reshape(-1, 1)
         before = tcritic.value_loss(values, vp, ret, tvn.update_value_norm(tv_old, ret))
         stale = tcritic.value_loss(values, vp, ret, tv_old)
@@ -242,3 +242,140 @@ def test_losses_and_aggregation_match():
                jcommon.aggregate_ratio(jnp.asarray(d), how), 1e-6, 1e-6)
     with pytest.raises(ValueError):
         tcommon.aggregate_ratio(torch.from_numpy(d), "max")
+
+
+# ------------------------------------------------- recurrent, Discrete
+RT, RB, L, N_ACT = 10, 4, 5, 6
+
+
+def _rnn_cfg(chunked, num_mini_batch):
+    return dict(CFG, actor_num_mini_batch=num_mini_batch, critic_num_mini_batch=num_mini_batch,
+                use_recurrent_policy=chunked, use_naive_recurrent_policy=not chunked,
+                data_chunk_length=L)
+
+
+def _rnn_inputs(rng, T, B, H):
+    """Hidden states at every step's input (the update reads those at each
+    chunk's first step) and masks with episode ends inside chunks."""
+    f = np.float32
+    rnn = rng.normal(size=(T, B, 1, H)).astype(f)
+    masks = (rng.uniform(size=(T, B, 1)) > 0.2).astype(f)
+    return rnn, masks
+
+
+def _rnn_actor_case(chunked, state_type, num_mini_batch, seed=2):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    space, jspace = spaces.Discrete(N_ACT), jspaces.Discrete(N_ACT)
+    jpol = JPolicy(action_space=jspace, hidden_sizes=HIDDEN, use_recurrent_policy=True)
+    obs = rng.normal(size=(RT, RB, OBS_DIM)).astype(f)
+    params = jpol.init(jax.random.PRNGKey(seed), jnp.asarray(obs[0]))
+    params = jax.tree.map(lambda x: x + 0.2 * rng.normal(size=x.shape).astype(f), params)
+    rnn, masks = _rnn_inputs(rng, RT, RB, HIDDEN[-1])
+    avail = (rng.uniform(size=(RT, RB, N_ACT)) > 0.3).astype(f)
+    avail[..., 1] = 1.0
+    actions = (rng.uniform(size=avail.shape) * avail).argmax(-1)[..., None].astype(np.int32)
+    (logits,), _ = jpol.apply(params, jnp.asarray(obs), jnp.asarray(rnn[0]), jnp.asarray(masks),
+                              seq=True)
+    lp = jax.nn.log_softmax(jnp.where(avail == 0, -1e10, logits))
+    logp = np.take_along_axis(np.asarray(lp), actions, -1)
+    logp = (logp + 0.3 * rng.normal(size=logp.shape)).astype(f)   # some ratios clip
+    active = (rng.uniform(size=(RT, RB, 1)) > 0.2).astype(f)
+    adv = rng.normal(0.5, 2.0, size=(RT, RB, 1)).astype(f)
+    factor = rng.uniform(0.5, 1.5, size=(RT, RB, 1)).astype(f)
+    cfg = _rnn_cfg(chunked, num_mini_batch)
+    tx = jcommon.make_optimizer(LR, EPS, 0.0, MAX_NORM)
+    jactor = JActor(jpol, jspace, tx, cfg)
+    jbatch = JActorBatch(obs=jnp.asarray(obs), rnn_states=jnp.asarray(rnn),
+                         actions=jnp.asarray(actions), logp=jnp.asarray(logp),
+                         masks=jnp.asarray(masks), active_masks=jnp.asarray(active),
+                         available_actions=jnp.asarray(avail))
+    key = jax.random.PRNGKey(seed + 11)
+    jstate, jstats = jactor.update(jcommon.AgentTrainState(params, tx.init(params)), jbatch,
+                                   jnp.asarray(adv), jnp.asarray(factor), key, state_type)
+
+    tpol = StochasticPolicy(OBS_DIM, space, HIDDEN, use_recurrent_policy=True, device="cpu")
+    tpol.load_state_dict(convert.policy_state_dict(_np_tree(params)))
+    tstate = tcommon.AgentTrainState(
+        tpol, tcommon.make_optimizer(tpol.parameters(), LR, EPS, 0.0, MAX_NORM))
+    tactor = HAPPOActor(space, cfg)
+    rows = tactor.chunking.rows(RT, RB)
+    assert rows == (RB * RT // L if chunked else RB)
+    perms = (None if num_mini_batch == 1 else
+             torch.from_numpy(_jax_perms(key, CFG["ppo_epoch"], rows)).long())
+    t = torch.from_numpy
+    tbatch = ActorBatch(obs=t(obs), actions=t(actions).long(), logp=t(logp),
+                        active_masks=t(active), rnn_states=t(rnn), masks=t(masks),
+                        available_actions=t(avail))
+    tstats = tactor.update(tstate, tbatch, t(adv), t(factor), perms, state_type=state_type)
+    return (jactor, jstate, jstats, jbatch), (tactor, tstate, tstats, tbatch)
+
+
+@pytest.mark.parametrize("chunked,state_type,num_mini_batch", [
+    (True, "EP", 1),     # chunked BPTT, the SMACLite bench's settings but EP
+    (True, "FP", 2),     # FP: advantages as given; shuffled chunks
+    (False, "EP", 2),    # naive recurrent: whole env threads, shuffled
+    (False, "FP", 1),
+])
+def test_recurrent_happo_actor_update_matches(chunked, state_type, num_mini_batch):
+    (jactor, jstate, jstats, jbatch), (tactor, tstate, tstats, tbatch) = _rnn_actor_case(
+        chunked, state_type, num_mini_batch)
+    _close(tstats, jstats, STAT_RTOL, STAT_ATOL)
+    assert float(jstats[2]) > 0.0
+    _same_params(tstate.net, jstate.params, convert.policy_state_dict)
+    # the factor chain's log-probs: the whole rollout from rnn_states[0]
+    _close(tactor.evaluate_logp(tstate.net, tbatch), jactor.evaluate_logp(jstate.params, jbatch),
+           PARAM_RTOL, PARAM_ATOL)
+
+
+def test_fp_skips_the_actor_advantage_normalisation():
+    """Under FP the runner has normalised across agents already
+    (happo.py:123-124): the same advantages train differently under EP."""
+    _, (_, _, fp_stats, _) = _rnn_actor_case(True, "FP", 1)
+    _, (_, _, ep_stats, _) = _rnn_actor_case(True, "EP", 1)
+    assert abs(float(fp_stats[0]) - float(ep_stats[0])) > 1e-3
+
+
+@pytest.mark.parametrize("chunked,num_mini_batch", [(True, 1), (True, 2), (False, 2)])
+def test_recurrent_v_critic_update_matches(chunked, num_mini_batch):
+    rng = np.random.default_rng(7)
+    f = np.float32
+    jnet = JVNet(hidden_sizes=HIDDEN, use_recurrent_policy=True)
+    share = rng.normal(size=(RT, RB, DS)).astype(f)
+    params = jnet.init(jax.random.PRNGKey(7), jnp.asarray(share[0]))
+    params = jax.tree.map(lambda x: x + 0.2 * rng.normal(size=x.shape).astype(f), params)
+    rnn, masks = _rnn_inputs(rng, RT, RB, HIDDEN[-1])
+    value_preds = rng.normal(size=(RT, RB, 1)).astype(f)
+    returns = rng.normal(2.0, 3.0, size=(RT, RB, 1)).astype(f)
+    cfg = _rnn_cfg(chunked, num_mini_batch)
+    tx = jcommon.make_optimizer(LR, EPS, 0.0, MAX_NORM)
+    key = jax.random.PRNGKey(13)
+    jv, tv = jvn.init_value_norm(1), tvn.init_value_norm(1, device="cpu")
+    jstate, jv, jstats = JVCritic(jnet, tx, cfg).update(
+        jcommon.AgentTrainState(params, tx.init(params)), jv,
+        JCriticBatch(share_obs=jnp.asarray(share), rnn_states=jnp.asarray(rnn),
+                     value_preds=jnp.asarray(value_preds), returns=jnp.asarray(returns),
+                     masks=jnp.asarray(masks)), key)
+
+    tnet = VNet(DS, HIDDEN, use_recurrent_policy=True, device="cpu")
+    tnet.load_state_dict(convert.vnet_state_dict(_np_tree(params)))
+    tstate = tcommon.AgentTrainState(
+        tnet, tcommon.make_optimizer(tnet.parameters(), LR, EPS, 0.0, MAX_NORM))
+    tcritic = VCritic(cfg)
+    rows = tcritic.chunking.rows(RT, RB)
+    perms = (None if num_mini_batch == 1 else
+             torch.from_numpy(_jax_perms(key, CFG["critic_epoch"], rows)).long())
+    t = torch.from_numpy
+    tv, tstats = tcritic.update(tstate, tv, CriticBatch(
+        share_obs=t(share), value_preds=t(value_preds), returns=t(returns),
+        rnn_states=t(rnn), masks=t(masks)), perms)
+    _close(tstats, jstats, STAT_RTOL, STAT_ATOL)
+    _same_params(tstate.net, jstate.params, convert.vnet_state_dict)
+    for name in ("running_mean", "running_mean_sq", "debiasing_term"):
+        _close(getattr(tv, name), getattr(jv, name), 1e-5, 1e-7)
+
+
+def test_chunk_length_must_divide_the_rollout():
+    actor = HAPPOActor(spaces.Discrete(3), _rnn_cfg(True, 1))
+    with pytest.raises(ValueError, match="data_chunk_length"):
+        actor.chunking.rows(12, RB)

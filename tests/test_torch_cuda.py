@@ -101,3 +101,31 @@ def test_kernel_refuses_mixed_devices(device):
     r, v, m, b = _problem(4, (3, 1), True, device)
     with pytest.raises(ValueError):
         K.gae(r, v.cpu(), m, b, 0.99, 0.95)
+
+
+@pytest.mark.parametrize("map_name", ["5m_vs_6m", "2s3z", "MMM", "bane_vs_bane"])
+def test_smaclite_steps_on_the_card_equal_the_cpu(device, map_name):
+    """30 steps of the same batch with the same actions on both devices.
+    Every float operation of the env rounds the same on both (products by
+    float32 reciprocals, fused adds formed in float64, a fixed summation
+    order: envs/smaclite/smaclite.py), so the state and every feature are
+    bitwise equal; only the reward's sum over enemies may reassociate."""
+    from harl_tpu_torch.envs.smaclite.smaclite import SMACLiteState, make_smaclite
+
+    envs = [make_smaclite(map_name, torch.device(d), state_type="FP", episode_limit=25)
+            for d in ("cpu", device)]
+    g = torch.Generator().manual_seed(0)
+    X = 32
+    u = torch.rand((X, envs[0].reset_noise_dim), generator=g)
+    out = [e.reset((u.to(e.device), torch.zeros_like(u, device=e.device))) for e in envs]
+    n_agents, n_actions = envs[0].n_agents, envs[0].n_actions
+    for _ in range(30):
+        (s_cpu, ts_cpu), (s_gpu, ts_gpu) = out
+        for k in SMACLiteState._fields:
+            assert torch.equal(getattr(s_gpu, k).cpu(), getattr(s_cpu, k)), k
+        for k in ("obs", "share_obs", "agent_state", "dones", "bad_transition",
+                  "available_actions"):
+            assert torch.equal(getattr(ts_gpu, k).cpu(), getattr(ts_cpu, k)), k
+        torch.testing.assert_close(ts_gpu.rewards.cpu(), ts_cpu.rewards, rtol=1e-6, atol=1e-7)
+        a = torch.randint(0, n_actions, (X, n_agents, 1), generator=g)
+        out = [e.step(o[0], a.to(e.device)) for e, o in zip(envs, out)]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from harl_tpu.models import act as jact
+from harl_tpu.ops import distributions as jdist
 from harl_tpu.models.mlp import MLPBase as JMLPBase
 from harl_tpu.models.policies import StochasticPolicy as JPolicy
 from harl_tpu.models.values import VNet as JVNet
@@ -21,12 +22,14 @@ from harl_tpu_torch.models import act as tact
 from harl_tpu_torch.models.mlp import LAYER_NORM_EPS, MLPBase
 from harl_tpu_torch.models.policies import StochasticPolicy
 from harl_tpu_torch.models.values import VNet
+from harl_tpu_torch.ops import distributions as tdist
 from harl_tpu_torch.utils import convert, spaces
 from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
 
 # float32 forward passes of two small layers; sums in another order
 RTOL = ATOL = 1e-5
 OBS_DIM, ACT_DIM, HIDDEN = 12, 3, (16, 16)
+N_ACT = 7
 
 
 def _close(a, b, rtol=RTOL, atol=ATOL):
@@ -54,7 +57,8 @@ def test_policy_sample_and_evaluate_match_flax():
     jpol, params, tpol, obs = _policies()
     noise = np.random.default_rng(7).normal(size=(5, ACT_DIM)).astype(np.float32)
     (jmean, jlog_std), _ = jpol.apply(params, jnp.asarray(obs))
-    tmean, tlog_std = tpol(torch.from_numpy(obs))
+    (tmean, tlog_std), rnn = tpol(torch.from_numpy(obs))
+    assert rnn is None
     _close(tmean.detach(), jmean)
     _close(tlog_std.detach(), jlog_std)
     # the JAX sample draws its own normal; rebuild it from the same noise
@@ -81,7 +85,7 @@ def test_policy_sample_and_evaluate_match_flax():
 
 def test_deterministic_sample_is_the_mean():
     _, _, tpol, obs = _policies(1)
-    head = tpol(torch.from_numpy(obs))
+    head, _ = tpol(torch.from_numpy(obs))
     out = tact.act_sample(None, head, spaces.Box.create(-1.0, 1.0, ACT_DIM), deterministic=True)
     _close(out.actions.detach(), head[0].detach())
 
@@ -93,7 +97,9 @@ def test_vnet_matches_flax():
     tv = VNet(20, HIDDEN, device="cpu")
     tv.load_state_dict(convert.vnet_state_dict(params))
     jout, _ = jv.apply(params, jnp.asarray(x))
-    _close(tv(torch.from_numpy(x)).detach(), jout)
+    tout, rnn = tv(torch.from_numpy(x))
+    assert rnn is None
+    _close(tout.detach(), jout)
 
 
 def test_layer_norm_eps_is_flax_default():
@@ -149,11 +155,14 @@ def test_fresh_init_statistics():
 
 
 def test_unported_heads_raise():
+    class MultiDiscrete:   # several categoricals, as the JAX package's space
+        nvec = (3, 4)
+
+    with pytest.raises(NotImplementedError, match="MultiDiscrete"):
+        StochasticPolicy(OBS_DIM, MultiDiscrete(), HIDDEN, device="cpu")
     with pytest.raises(NotImplementedError):
-        StochasticPolicy(OBS_DIM, spaces.Discrete(5), HIDDEN, device="cpu")
-    with pytest.raises(NotImplementedError):
-        StochasticPolicy(OBS_DIM, spaces.Box.create(-1.0, 1.0, 2), HIDDEN, device="cpu",
-                         use_recurrent_policy=True)
+        StochasticPolicy(OBS_DIM, spaces.Discrete(5), HIDDEN, device="cpu",
+                         initialization_method="xavier_uniform_", use_recurrent_policy=True)
 
 
 @pytest.mark.parametrize("section", ["train", "model", "algo"])
@@ -161,3 +170,102 @@ def test_happo_yaml_copy_matches(section):
     port, _ = get_defaults_yaml_args("happo", "mamujoco_jax")
     ref, _ = jdefaults("happo", "mamujoco_jax")
     assert port[section] == ref[section]
+
+
+# ----------------------------------------------------- Discrete, recurrent
+def _avail(rng, shape):
+    """Availability rows with some actions masked and at least one free."""
+    avail = (rng.uniform(size=shape) > 0.4).astype(np.float32)
+    avail[..., 1] = 1.0
+    return avail
+
+
+def test_categorical_with_availability_matches_jax():
+    """Masked log-probs and entropy (no NaN from the −1e10 logits), the
+    Gumbel-max sample equal to ``jax.random.categorical`` for the same key,
+    and never an unavailable action."""
+    rng = np.random.default_rng(5)
+    logits = (3.0 * rng.normal(size=(64, N_ACT))).astype(np.float32)
+    avail = _avail(rng, (64, N_ACT))
+    key = jax.random.PRNGKey(5)
+    jd = jdist.categorical(jnp.asarray(logits), jnp.asarray(avail))
+    td = tdist.categorical(torch.from_numpy(logits), torch.from_numpy(avail))
+    gumbel = np.array(jax.random.gumbel(key, logits.shape))
+    ja = np.asarray(jd.sample(key))
+    ta = td.sample(torch.from_numpy(gumbel))
+    np.testing.assert_array_equal(ta.numpy(), ja)
+    assert (np.take_along_axis(avail, ta.numpy(), -1) == 1).all()
+    np.testing.assert_array_equal(td.mode().numpy(), np.asarray(jd.mode()))
+    _close(td.log_prob(ta), jd.log_prob(jnp.asarray(ja)))
+    ent = td.entropy()
+    assert bool(torch.isfinite(ent).all())
+    _close(ent, jd.entropy())
+    # every action but one masked: p = 0 exactly for the rest, entropy 0
+    one = np.zeros((1, N_ACT), np.float32)
+    one[0, 2] = 1.0
+    _close(tdist.categorical(torch.from_numpy(logits[:1]), torch.from_numpy(one)).entropy(),
+           np.zeros(1))
+
+
+def test_discrete_head_sample_and_evaluate_match_flax():
+    rng = np.random.default_rng(6)
+    space, jspace = spaces.Discrete(N_ACT), jspaces.Discrete(N_ACT)
+    jpol = JPolicy(action_space=jspace, hidden_sizes=HIDDEN)
+    obs = rng.normal(size=(9, OBS_DIM)).astype(np.float32)
+    params = _perturbed(jpol.init(jax.random.PRNGKey(6), jnp.asarray(obs)), 7)
+    tpol = StochasticPolicy(OBS_DIM, space, HIDDEN, device="cpu")
+    tpol.load_state_dict(convert.policy_state_dict(params))
+    avail = _avail(rng, (9, N_ACT))
+    key = jax.random.PRNGKey(8)
+    jhead, _ = jpol.apply(params, jnp.asarray(obs))
+    thead, _ = tpol(torch.from_numpy(obs))
+    _close(thead[0].detach(), jhead[0])
+    jout = jact.act_sample(key, jhead, jspace, jnp.asarray(avail))
+    tout = tact.act_sample(torch.from_numpy(np.array(jax.random.gumbel(key, (9, N_ACT)))),
+                           thead, space, torch.from_numpy(avail))
+    np.testing.assert_array_equal(tout.actions.numpy(), np.asarray(jout.actions))
+    _close(tout.log_probs.detach(), jout.log_probs)
+    active = (rng.uniform(size=(9, 1)) > 0.3).astype(np.float32)
+    jev = jact.act_evaluate(jhead, jspace, jout.actions, jnp.asarray(avail), jnp.asarray(active))
+    tev = tact.act_evaluate(thead, space, tout.actions, torch.from_numpy(avail),
+                            torch.from_numpy(active))
+    _close(tev.log_probs.detach(), jev.log_probs)
+    _close(tev.entropy.detach(), jev.entropy)
+
+
+@pytest.mark.parametrize("seq", [False, True])
+def test_recurrent_policy_and_vnet_match_flax(seq):
+    """MLP → GRU → head, in step mode and in sequence mode over 12 steps
+    with masks that reset some hidden states midway."""
+    rng = np.random.default_rng(9)
+    T, B, Hd = 12, 5, HIDDEN[-1]
+    space, jspace = spaces.Discrete(N_ACT), jspaces.Discrete(N_ACT)
+    x = rng.normal(size=(T, B, OBS_DIM)).astype(np.float32)
+    h0 = rng.normal(size=(B, 1, Hd)).astype(np.float32)
+    masks = (rng.uniform(size=(T, B, 1)) > 0.2).astype(np.float32)
+    xi, mi = (x, masks) if seq else (x[0], masks[0])
+    jpol = JPolicy(action_space=jspace, hidden_sizes=HIDDEN, use_recurrent_policy=True)
+    jv = JVNet(hidden_sizes=HIDDEN, use_recurrent_policy=True)
+    for jm, to_sd, make in [
+        (jpol, convert.policy_state_dict,
+         lambda: StochasticPolicy(OBS_DIM, space, HIDDEN, use_recurrent_policy=True,
+                                  device="cpu")),
+        (jv, convert.vnet_state_dict,
+         lambda: VNet(OBS_DIM, HIDDEN, use_recurrent_policy=True, device="cpu")),
+    ]:
+        params = _perturbed(jm.init(jax.random.PRNGKey(9), jnp.asarray(x[0])), 10)
+        tm = make()
+        tm.load_state_dict(to_sd(params))
+        jout, jh = jm.apply(params, jnp.asarray(xi), jnp.asarray(h0), jnp.asarray(mi), seq=seq)
+        with torch.no_grad():
+            tout, th = tm(torch.from_numpy(xi), torch.from_numpy(h0), torch.from_numpy(mi),
+                          seq=seq)
+        for a, b in zip(tout if isinstance(tout, tuple) else (tout,),
+                        jout if isinstance(jout, tuple) else (jout,)):
+            _close(a, b)
+        _close(th, jh)
+    # the converter carries the GRU and the Discrete head
+    sd = convert.policy_state_dict(_perturbed(jpol.init(jax.random.PRNGKey(9),
+                                                        jnp.asarray(x[0])), 10))
+    assert {"rnn.wi0", "rnn.wh0", "rnn.bi0", "rnn.bh0", "rnn.norm.weight",
+            "act.head.weight"} <= set(sd) and "act.log_std" not in sd

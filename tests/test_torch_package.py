@@ -91,7 +91,7 @@ def test_cpu_path_runs_when_asked():
 def test_unported_options_raise():
     algo_args, env_args = _small_configs()
     for section, key, value in [("algo", "share_param", True),
-                                ("model", "use_recurrent_policy", True),
+                                ("model", "initialization_method", "xavier_uniform_"),
                                 ("train", "use_linear_lr_decay", True)]:
         a = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
         a[section][key] = value
@@ -100,3 +100,51 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         OnPolicyRunner({"algo": "hatrpo", "env": "mamujoco_jax"}, algo_args, env_args,
                        device="cpu")
+    # the planar env has no FP state
+    with pytest.raises(NotImplementedError, match="FP"):
+        OnPolicyRunner(ARGS, algo_args, dict(env_args, state_type="FP"), device="cpu")
+
+
+def _smaclite_configs():
+    algo_args, env_args = get_defaults_yaml_args("happo", "smaclite")
+    algo_args["train"].update(n_rollout_threads=3, episode_length=10)
+    algo_args["model"].update(hidden_sizes=[8, 8], use_recurrent_policy=True,
+                              data_chunk_length=5)
+    algo_args["algo"].update(ppo_epoch=1, critic_epoch=1)
+    env_args.update(map_name="3m", state_type="FP", episode_limit=6)
+    return algo_args, env_args
+
+
+SMAC_ARGS = {"algo": "happo", "env": "smaclite"}
+
+
+def test_smaclite_path_defaults_to_cuda_and_refuses_unported_options():
+    algo_args, env_args = _smaclite_configs()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OnPolicyRunner(SMAC_ARGS, algo_args, env_args)
+    with pytest.raises(NotImplementedError, match="SMACv2 randomized maps"):
+        OnPolicyRunner(SMAC_ARGS, algo_args, dict(env_args, map_name="protoss_5_vs_5"),
+                       device="cpu")
+    shared = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
+    shared["algo"]["share_param"] = True
+    with pytest.raises(NotImplementedError, match="share_param"):
+        OnPolicyRunner(SMAC_ARGS, shared, env_args, device="cpu")
+    with pytest.raises(NotImplementedError, match="HATRPO"):
+        OnPolicyRunner({"algo": "hatrpo", "env": "smaclite"}, algo_args, env_args, device="cpu")
+
+
+def test_smaclite_cpu_path_runs_when_asked():
+    algo_args, env_args = _smaclite_configs()
+    runner = OnPolicyRunner(SMAC_ARGS, algo_args, env_args, device="cpu")
+    state = runner.init_state(0)
+    before = gae_kernels.gae.launches
+    for _ in range(2):
+        state, metrics = runner.train_iteration(state)
+    assert gae_kernels.gae.launches == before
+    assert tuple(metrics["actor_stats"].shape) == (3, 4)
+    assert bool(torch.isfinite(metrics["actor_stats"]).all())
+    assert math.isfinite(float(metrics["value_loss"]))
+    assert set(metrics["episode_metric_sums"]) == {"won", "dead_allies", "dead_enemies"}
+    assert float(metrics["episode_count"]) >= 3.0      # every env truncated at least once
+    assert state.carry.critic_rnn.shape == (9, 1, 8)   # FP: one row per (env, agent)

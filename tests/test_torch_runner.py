@@ -130,10 +130,10 @@ def test_train_iteration_matches_jax(use_gae, num_mini_batch, fixed_order, aggre
     seen = {}
     update_phase = tr.update_phase
 
-    def spy(state, data, first_masks0, last_share_obs):
+    def spy(state, data, *last):
         seen["data"] = data
-        seen["returns"] = tr.compute_returns(state, data, first_masks0, last_share_obs)[0]
-        return update_phase(state, data, first_masks0, last_share_obs)
+        seen["returns"] = tr.compute_returns(state, data, *last)[0]
+        return update_phase(state, data, *last)
 
     tr.update_phase = spy
     ts, tm = tr.train_iteration(ts)

@@ -23,12 +23,41 @@ def reset_noise(reset_keys, dof):
     return np.asarray(u), np.asarray(n)
 
 
-def step_reset_noise(k_env, n_envs, dof):
-    """The reset draws of one ``VecEnv.step(…, k_env)``: each env splits
-    its key into (step, reset) (core.py:49-54)."""
+def _step_reset_keys(k_env, n_envs):
+    """The reset keys of one ``VecEnv.step(…, k_env)``: each env splits its
+    key into (step, reset) (core.py:49-54)."""
     keys = jax.random.split(k_env, n_envs)
-    reset_keys = jax.vmap(lambda k: jax.random.split(k)[1])(keys)
-    return reset_noise(reset_keys, dof)
+    return jax.vmap(lambda k: jax.random.split(k)[1])(keys)
+
+
+def step_reset_noise(k_env, n_envs, dof):
+    """The planar reset draws of one ``VecEnv.step(…, k_env)``."""
+    return reset_noise(_step_reset_keys(k_env, n_envs), dof)
+
+
+def smaclite_reset_noise(reset_keys, n_allies, n_enemies):
+    """The SMACLite reset's spawn draws as the port's (uniform, normal)
+    pair of tensors, each (n, 2A+2E): each env splits its key four ways and
+    draws the allies' uniforms from the first, the enemies' from the second
+    (smaclite.py:405, 459-462). The normal half is not read: zeros."""
+    def one(key):
+        k1, k2, _, _ = jax.random.split(key, 4)
+        return jax.numpy.concatenate([jax.random.uniform(k1, (n_allies, 2)).ravel(),
+                                      jax.random.uniform(k2, (n_enemies, 2)).ravel()])
+
+    u = np.asarray(jax.vmap(one)(reset_keys))
+    return torch.from_numpy(np.array(u)), torch.zeros(u.shape)
+
+
+def step_smaclite_reset_noise(k_env, n_envs, n_allies, n_enemies):
+    """The SMACLite reset draws of one ``VecEnv.step(…, k_env)``."""
+    return smaclite_reset_noise(_step_reset_keys(k_env, n_envs), n_allies, n_enemies)
+
+
+def gumbel_noise(key, shape):
+    """The standard Gumbel draw of ``jax.random.categorical(key, logits)``
+    with logits of ``shape`` (argmax(gumbel + logits), jax 0.9)."""
+    return np.asarray(jax.random.gumbel(key, shape))
 
 
 class ReplayNoise:
@@ -36,17 +65,22 @@ class ReplayNoise:
     for something other than what was queued."""
 
     def __init__(self):
-        self.actions, self.resets, self.perms = deque(), deque(), deque()
+        self.actions, self.gumbels, self.resets, self.perms = deque(), deque(), deque(), deque()
 
     def action_noise(self, shape):
         a = self.actions.popleft()
         assert a.shape == tuple(shape), (a.shape, tuple(shape))
         return torch.from_numpy(np.array(a))
 
+    def gumbel_noise(self, shape):
+        g = self.gumbels.popleft()
+        assert g.shape == tuple(shape), (g.shape, tuple(shape))
+        return torch.from_numpy(np.array(g))
+
     def reset_noise(self, n_envs, dof):
         u, n = self.resets.popleft()
-        assert u.shape == (n_envs, dof)
-        return torch.from_numpy(np.array(u)), torch.from_numpy(np.array(n))
+        assert tuple(u.shape) == (n_envs, dof)
+        return torch.as_tensor(np.array(u)), torch.as_tensor(np.array(n))
 
     def permutation(self, n):
         p = self.perms.popleft()
@@ -54,4 +88,4 @@ class ReplayNoise:
         return torch.from_numpy(np.array(p)).long()
 
     def drained(self):
-        return not (self.actions or self.resets or self.perms)
+        return not (self.actions or self.gumbels or self.resets or self.perms)
