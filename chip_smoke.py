@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
-toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure:
+toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
+run in the order 1-4, 10, 5, 7, 8, 9, 11, then the torch.profiler sessions of
+10, 6 and 8: a profiler session leaves the process slower, so every timed run
+comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -29,19 +32,33 @@ toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure:
    (bench.py:257-268), 3 iterations with the launch counts zeroed just
    before and read just after; then one more iteration split into rollout
    and update, in which the GAE kernel's returns on the path's own inputs
-   (T=70, b=1280) are held against the plain version and timed; the device
-   ops of one env step and one rollout step, and one more iteration under
-   torch.profiler;
+   (T=70, b=1280) are held against the plain version and timed; last, the
+   device ops of one env step and one rollout step, and one more iteration
+   under torch.profiler;
 9. check one small SMACLite iteration (3m, FP, GRU) on the card against the
-   same iteration on the CPU: actions, availability and masks equal.
+   same iteration on the CPU: actions, availability and masks equal;
+10. drive the off-policy path, right after phase 4: HASAC on planar
+   HalfCheetah-6x1 at the bench's widths (bench.py:289-325: 256 envs,
+   ``train_interval`` 50, batch 1000, buffer 200,000, ``n_step`` 5, MLP
+   [256, 256]) through ``OffPolicyRunner``: the warmup, one collect+train
+   block, 3 timed blocks (env-steps/s), one more block split into collect
+   and train; last, 3 more timed blocks, the device ops of one env step
+   with its actors and of one update, one more block under torch.profiler,
+   and 3 more timed blocks; the launch counts are zeroed before each part
+   and read after it (this path launches no kernel of the port);
+11. check one small HASAC and one small HATD3 block (warmup, collect,
+   train) on the card against the same blocks on the CPU: the buffer's rows
+   and every parameter after training.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -75,6 +92,10 @@ RETURNS_ENVS = 512
 # SMACLite 5m_vs_6m FP critic's (bench.py:257, 268: 256 envs x 5 agents, T=70)
 TIMED_SHAPES = (("main", MAIN["episode_length"], (MAIN["n_envs"], 1)),
                 ("smaclite_fp", 70, (256, 5, 1)))
+# the JAX package's off-policy bench configuration (bench.py:289-325)
+HASAC = dict(n_envs=256, episode_limit=1000, warmup_steps=256 * 4, train_interval=50,
+             n_step=5, batch_size=1000, buffer_size=200_000, hidden=[256, 256],
+             timed_blocks=3)
 # Zeroing this many bytes between launches evicts the 50 MB L2.
 FLUSH_BYTES = 256 * 2 ** 20
 
@@ -310,25 +331,22 @@ def check_metrics(metrics, n_agents: int) -> None:
 
 
 def profile_iteration(runner, state, card: str, plain_iteration_s: float,
-                      label: str = "main path") -> None:
-    """One more iteration under torch.profiler: kernels launched, device
-    busy time (the sum of kernel and copy times: one stream, no overlap),
-    and the busy share against an unprofiled iteration's wall time."""
-    from torch.autograd import DeviceType
+                      label: str = "main path", fn=None) -> None:
+    """One more iteration (or ``fn()``) under torch.profiler: kernels
+    launched, device busy time (the sum of kernel and copy times: one stream,
+    no overlap), and the busy share against an unprofiled iteration's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.train_iteration(state)
+        if fn is None:
+            runner.train_iteration(state)
+        else:
+            fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # CPU ops also carry their kernels' time
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        rows.append((us, ev.count, ev.key))
+    by_name, annotated = device_rows(prof)
+    rows = [(us, count, key) for key, (us, count) in by_name.items()]
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
         print(f"profile ({label}): no device time recorded by torch.profiler on {card}",
@@ -336,14 +354,16 @@ def profile_iteration(runner, state, card: str, plain_iteration_s: float,
         return
     launches = sum(r[1] for r in rows)
     print(f"profile of one {label} iteration: {launches} device ops, device busy "
-          f"{busy_s:.4f} s, "
-          f"busy share {busy_s / plain_iteration_s:.4f} of an unprofiled iteration "
-          f"({plain_iteration_s:.4f} s) on {card}", flush=True)
+          f"{busy_s:.4f} s (kernels and copies; {annotated / 1e6:.4f} s of annotation spans "
+          f"left out), busy share {busy_s / plain_iteration_s:.4f} of an unprofiled "
+          f"iteration ({plain_iteration_s:.4f} s) on {card}", flush=True)
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:10.3f} ms {count:7d}x  {key[:90]}", flush=True)
 
 
-def drive_main_path(card: str) -> dict:
+def drive_main_path(card: str) -> tuple:
+    """The main path; returns (launches per kernel, a function that profiles
+    one more iteration, for ``main`` to call after every timed run)."""
     from harl_tpu_torch.ops import gae_kernels as K
 
     n, T = MAIN["n_envs"], MAIN["episode_length"]
@@ -383,7 +403,7 @@ def drive_main_path(card: str) -> dict:
     t2 = time.perf_counter()
     print(f"phases of one iteration: rollout {t1 - t0:.4f} s, update {t2 - t1:.4f} s "
           f"on {card}", flush=True)
-    profile_iteration(runner, state, card, times[-1])
+    profile = functools.partial(profile_iteration, runner, state, card, times[-1])
 
     # use_gae: false goes through the discounted-returns kernel
     runner = make_runner(RETURNS_ENVS, T, MAIN["hidden"], "cuda", use_gae=False)
@@ -399,7 +419,7 @@ def drive_main_path(card: str) -> dict:
         raise AssertionError(f"use_gae=false: returns kernel {K.discounted_returns.launches}, "
                              f"gae {K.gae.launches} launches")
     log(f"use_gae=false at {RETURNS_ENVS} envs: value_loss {float(metrics['value_loss']):.4f}")
-    return launches
+    return launches, profile
 
 
 def make_smaclite_runner(n_envs: int, T: int, hidden, device, noise=None,
@@ -421,28 +441,44 @@ def make_smaclite_runner(n_envs: int, T: int, hidden, device, noise=None,
                           device=device, noise=noise)
 
 
+def device_rows(prof) -> tuple:
+    """({name: [device µs, launches]} of the kernels and copies a profile
+    recorded, device µs of the user annotations left out). An annotation
+    (``Optimizer.step#Adam.step``) spans its kernels and the gaps between
+    them on the device, so counting it would count busy time twice."""
+    from torch.autograd import DeviceType
+
+    rows, annotated = {}, 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:   # CPU ops also carry their kernels' time
+            continue
+        us = ev.time_range.elapsed_us()
+        if getattr(ev, "is_user_annotation", False):
+            annotated += us
+            continue
+        row = rows.setdefault(ev.name, [0.0, 0])
+        row[0] += us
+        row[1] += 1
+    return rows, annotated
+
+
 def count_device_ops(fn) -> tuple:
     """(device ops, device ms) of one call of ``fn`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops, us = 0, 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            ops += ev.count
-            us += getattr(ev, "self_device_time_total", None) or getattr(
-                ev, "self_cuda_time_total", 0.0)
-    return ops, us / 1e3
+    rows, _ = device_rows(prof)
+    return sum(r[1] for r in rows.values()), sum(r[0] for r in rows.values()) / 1e3
 
 
 def drive_smaclite_path(card: str, device="cuda") -> tuple:
     """The recurrent discrete path at the bench's widths; returns (launches
     per kernel, the GAE kernel's shape, max |err| and warm ms on the path's
-    own inputs)."""
+    own inputs, a function that counts the device ops of a step and profiles
+    one more iteration, for ``main`` to call after every timed run)."""
     from harl_tpu_torch.ops import gae_kernels as K
 
     n, T = SMAC["n_envs"], SMAC["episode_length"]
@@ -507,18 +543,20 @@ def drive_smaclite_path(card: str, device="cuda") -> tuple:
     print(f"smaclite phases of one iteration: rollout {t1 - t0:.4f} s, update {t3 - t2:.4f} s "
           f"on {card}", flush=True)
 
-    # device ops of one env step (auto-reset included) and one rollout step
-    actions = torch.randint(0, runner.env.n_actions, (n, runner.n_agents, 1), device=device)
-    env_ops, env_ms = count_device_ops(
-        lambda: runner.vec.step(state.carry.env_state, actions, runner.noise))
-    reset_ops, reset_ms = count_device_ops(lambda: runner.vec.reset(runner.noise))
-    with torch.no_grad():
-        step_ops, step_ms = count_device_ops(lambda: runner.rollout_step(state, state.carry))
-    print(f"smaclite device ops: one env step with auto-reset {env_ops} ops, {env_ms:.3f} ms "
-          f"device time (its reset alone {reset_ops} ops, {reset_ms:.3f} ms); one rollout step "
-          f"{step_ops} ops, {step_ms:.3f} ms, on {card}", flush=True)
-    profile_iteration(runner, state, card, times[-1], label="smaclite")
-    return launches, dict(T=T, b=rewards.numel() // T, ms=ms, max_abs_err=err)
+    def profile():
+        # device ops of one env step (auto-reset included) and one rollout step
+        actions = torch.randint(0, runner.env.n_actions, (n, runner.n_agents, 1), device=device)
+        env_ops, env_ms = count_device_ops(
+            lambda: runner.vec.step(state.carry.env_state, actions, runner.noise))
+        reset_ops, reset_ms = count_device_ops(lambda: runner.vec.reset(runner.noise))
+        with torch.no_grad():
+            step_ops, step_ms = count_device_ops(lambda: runner.rollout_step(state, state.carry))
+        print(f"smaclite device ops: one env step with auto-reset {env_ops} ops, {env_ms:.3f} "
+              f"ms device time (its reset alone {reset_ops} ops, {reset_ms:.3f} ms); one rollout "
+              f"step {step_ops} ops, {step_ms:.3f} ms, on {card}", flush=True)
+        profile_iteration(runner, state, card, times[-1], label="smaclite")
+
+    return launches, dict(T=T, b=rewards.numel() // T, ms=ms, max_abs_err=err), profile
 
 
 def check_smaclite_against_cpu(devices=("cpu", "cuda")) -> None:
@@ -597,6 +635,204 @@ def check_against_cpu(devices=("cpu", "cuda")) -> None:
     log(f"small iteration: card == CPU (rtol {E2E_RTOL}, atol {E2E_ATOL})")
 
 
+def make_off_policy_runner(algo: str, device, noise=None, **overrides):
+    """An off-policy runner on HalfCheetah-6x1 with ``HASAC``'s settings
+    unless ``overrides`` says otherwise (``n_step=None``: the YAML's)."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    c = {**HASAC, **overrides}
+    algo_args, env_args = get_defaults_yaml_args(algo, "mamujoco_jax")
+    algo_args["train"].update(n_rollout_threads=c["n_envs"], num_env_steps=10 ** 9,
+                              warmup_steps=c["warmup_steps"],
+                              train_interval=c["train_interval"], update_per_train=1)
+    algo_args["algo"].update(batch_size=c["batch_size"], buffer_size=c["buffer_size"])
+    if c["n_step"] is not None:
+        algo_args["algo"]["n_step"] = c["n_step"]
+    algo_args["model"].update(hidden_sizes=list(c["hidden"]))
+    env_args.update(scenario="HalfCheetah-v2", agent_conf="6x1",
+                    episode_limit=c["episode_limit"])
+    return OffPolicyRunner({"algo": algo, "env": "mamujoco_jax"}, algo_args, env_args,
+                           device=device, noise=noise)
+
+
+def steal_s() -> float:
+    """CPU seconds the hypervisor gave to other guests, summed over this
+    machine's cores (the ``steal`` column of /proc/stat); nan without it."""
+    try:
+        with open("/proc/stat") as f:
+            fields = f.readline().split()
+        return int(fields[8]) / os.sysconf("SC_CLK_TCK")
+    except (OSError, IndexError, ValueError):
+        return math.nan
+
+
+def drive_hasac_path(card: str, device="cuda") -> tuple:
+    """HASAC at the bench's widths. ``main`` runs it before any torch.profiler
+    session of the process. Returns (launches per kernel, a function that
+    ``main`` calls after every other timed run: one more round of timed
+    blocks, the op counts, a profiled block and a last round of timed
+    blocks, and that returns the launches of that part). The rounds tell a
+    process that slows with age from one that a profiler session slows.
+    Each timed block also reads the process's CPU time and the machine's
+    steal time, to tell work in the process from a host that gives it less
+    of its cores. None of the port's kernels is on this path."""
+    from harl_tpu_torch.ops import gae_kernels as K
+
+    n, interval = HASAC["n_envs"], HASAC["train_interval"]
+    runner = make_off_policy_runner("hasac", device)
+    state = runner.init_state(0)
+    torch.cuda.synchronize()
+    K.gae.launches = 0
+    K.discounted_returns.launches = 0
+    t0 = time.perf_counter()
+    state = runner.warmup_block(state)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    rows, updates = HASAC["warmup_steps"], 0
+
+    def block():
+        nonlocal state, rows, updates
+        state, cm = runner.collect_block(state)
+        state, tm = runner.train_block(state)
+        rows += interval * n
+        updates += interval
+        return cm, tm
+
+    def timed_round(label: str, blocks: int) -> list:
+        """(wall s, process CPU s, steal s) of each of ``blocks`` blocks."""
+        out = []
+        for i in range(blocks):
+            t0, c0, s0 = time.perf_counter(), time.process_time(), steal_s()
+            cm, tm = block()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, time.process_time() - c0, steal_s() - s0))
+            loss = float(tm["critic_loss"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"critic_loss is not finite: {loss}")
+            log(f"hasac block {i + 1} {label}: {out[-1][0]:.3f} s, critic_loss {loss:.4f}, "
+                f"episodes {float(cm['episode_count']):.0f}, mean_step_reward "
+                f"{float(cm['mean_step_reward']):.4f}")
+        print(f"hasac blocks {label}: {len(out) * interval * n / sum(t[0] for t in out):.1f} "
+              f"env-steps/s; s per block {', '.join(f'{t[0]:.4f}' for t in out)}; process CPU "
+              f"s {', '.join(f'{t[1]:.4f}' for t in out)}; steal s (all cores) "
+              f"{', '.join(f'{t[2]:.4f}' for t in out)} on {card}", flush=True)
+        return out
+
+    first = timed_round("warm-up", 1)
+    fresh = timed_round("in a fresh process", HASAC["timed_blocks"])
+    print(f"hasac path: HASAC HalfCheetah-6x1, {n} envs, train_interval {interval}, batch "
+          f"{HASAC['batch_size']}, buffer {HASAC['buffer_size']}, n_step {HASAC['n_step']}, "
+          f"MLP {HASAC['hidden']}: {len(fresh) * interval * n / sum(t[0] for t in fresh):.1f} "
+          f"env-steps/s over blocks 2-{1 + len(fresh)}, before any profiler session "
+          f"(first block {first[0][0]:.4f} s; warmup {warmup_s:.4f} s) on {card}", flush=True)
+
+    # one more block, collect and train timed apart
+    t0 = time.perf_counter()
+    state, _ = runner.collect_block(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, tm = runner.train_block(state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows += interval * n
+    updates += interval
+    print(f"hasac phases of one block: collect {t1 - t0:.4f} s ({interval} env steps), train "
+          f"{t2 - t1:.4f} s ({interval} updates) on {card}", flush=True)
+    launches = {"gae": K.gae.launches, "discounted_returns": K.discounted_returns.launches}
+
+    def profile() -> dict:
+        nonlocal rows, updates
+        K.gae.launches = 0
+        K.discounted_returns.launches = 0
+        timed_round("after the other paths, before the profiler", HASAC["timed_blocks"])
+
+        # device ops of one env step with its actors, and of one update
+        def env_step():
+            with torch.no_grad():
+                runner._env_step_insert(state, *runner._env_actions(state.actors, state.carry))
+
+        step_ops, step_ms = count_device_ops(env_step)
+        update_ops, update_ms = count_device_ops(lambda: runner.update(state))
+        rows += n
+        updates += 1
+        print(f"hasac device ops: one env step with its 6 actors and the insert {step_ops} ops, "
+              f"{step_ms:.3f} ms device time; one update (sample, critic, 6 sequential actors, "
+              f"targets) {update_ops} ops, {update_ms:.3f} ms, on {card}", flush=True)
+        profile_iteration(runner, state, card, statistics.median(t[0] for t in fresh),
+                          label="hasac block", fn=block)
+        timed_round("after the profiler", HASAC["timed_blocks"])
+        later = {"gae": K.gae.launches, "discounted_returns": K.discounted_returns.launches}
+        if state.buffer.cur_size != rows or state.total_it != updates:
+            raise AssertionError(f"buffer holds {state.buffer.cur_size} rows (expected {rows}), "
+                                 f"{state.total_it} updates (expected {updates})")
+        if any(launches.values()) or any(later.values()):
+            raise AssertionError(f"the off-policy path launched a returns kernel: {launches}, "
+                                 f"then {later}")
+        print(f"hasac path: buffer {rows} rows after the warmup, {(updates - 1) // interval} "
+              f"blocks and one more env step; no kernel of the port launched ({launches}, "
+              f"then {later})", flush=True)
+        return later
+
+    return launches, profile
+
+
+def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda")) -> None:
+    """One small warmup + collect + train of ``algo`` on the card and on the
+    CPU from the same parameters and the same noise (drawn on the CPU)."""
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    runs = []
+    for dev in devices:
+        noise = GeneratorNoise(torch.Generator().manual_seed(5), dev,
+                               torch.Generator().manual_seed(5))
+        runner = make_off_policy_runner(algo, dev, noise=noise, n_envs=16, hidden=[16, 16],
+                                        episode_limit=5, warmup_steps=32, train_interval=4,
+                                        batch_size=64, buffer_size=1000,
+                                        n_step=3 if algo == "hasac" else None)
+        state = runner.init_state(0)
+        if runs:   # the card's runner starts from the CPU runner's parameters
+            cpu_state = runs[0][0]
+            for a, b in zip(state.actors, cpu_state.actors):
+                a.net.load_state_dict(b.net.state_dict())
+                a.target.load_state_dict(b.target.state_dict())
+            state.critic.nets.load_state_dict(cpu_state.critic.nets.state_dict())
+            state.critic.targets.load_state_dict(cpu_state.critic.targets.state_dict())
+        runs.append((state, runner))
+    outs = []
+    for state, runner in runs:
+        state = runner.warmup_block(state)
+        state, cm = runner.collect_block(state)
+        state, tm = runner.train_block(state)
+        outs.append((state, cm, tm))
+    torch.cuda.synchronize()
+    (s_cpu, c_cpu, t_cpu), (s_gpu, c_gpu, t_gpu) = outs
+    close = lambda a, b: torch.testing.assert_close(
+        torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
+    rows = s_cpu.buffer.cur_size
+    if s_gpu.buffer.cur_size != rows or rows != 32 + 4 * 16:
+        raise AssertionError(f"{algo}: buffer rows {s_gpu.buffer.cur_size} on the card, "
+                             f"{rows} on the CPU")
+    for name in ("share_obs", "next_share_obs", "rewards", "dones", "terms"):
+        close(getattr(s_gpu.buffer, name)[:rows], getattr(s_cpu.buffer, name)[:rows])
+    for name in ("obs", "next_obs", "actions", "valid_transitions"):
+        for a, b in zip(getattr(s_gpu.buffer, name), getattr(s_cpu.buffer, name)):
+            close(a[:rows], b[:rows])
+    for k in ("episode_return_sum", "episode_count", "mean_step_reward"):
+        close(c_gpu[k], c_cpu[k])
+    close(t_gpu["critic_loss"], t_cpu["critic_loss"])
+    pairs = [(a.net, b.net) for a, b in zip(s_gpu.actors, s_cpu.actors)]
+    pairs += [(a.target, b.target) for a, b in zip(s_gpu.actors, s_cpu.actors)]
+    pairs += [(s_gpu.critic.nets, s_cpu.critic.nets), (s_gpu.critic.targets,
+                                                        s_cpu.critic.targets)]
+    for a, b in pairs:
+        for va, vb in zip(a.state_dict().values(), b.state_dict().values()):
+            close(va, vb)
+    log(f"small {algo} block: card == CPU (buffer rows, losses, actors, critics and "
+        f"targets at rtol {E2E_RTOL}, atol {E2E_ATOL}); {float(c_cpu['episode_count']):.0f} "
+        f"episodes ended")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -605,11 +841,20 @@ def main() -> int:
     build_all()
     errs = check_kernels("cuda")
     timing, floor = time_kernels("cuda")
-    launches = drive_main_path(card)
+    # Every timed run comes before the first torch.profiler session: a
+    # session leaves the process slower (PERF.md §6).
+    hasac_launches, hasac_profile = drive_hasac_path(card)
+    launches, main_profile = drive_main_path(card)
     check_against_cpu()
-    smac_launches, smac_gae = drive_smaclite_path(card)
+    smac_launches, smac_gae, smac_profile = drive_smaclite_path(card)
     check_smaclite_against_cpu()
-    by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches}
+    for algo in ("hasac", "hatd3"):
+        check_off_policy_against_cpu(algo)
+    for name, n in hasac_profile().items():
+        hasac_launches[name] += n
+    main_profile()
+    smac_profile()
+    by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:

@@ -1,6 +1,6 @@
 """Shared algorithm plumbing (counterpart of ``harl_tpu/algos/common.py``):
-train states, the optimizer, losses, ratio aggregation, and how an update
-cuts its batch into minibatch rows."""
+train states, the optimizers, losses, ratio aggregation, polyak target
+updates, and how an update cuts its batch into minibatch rows."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,6 +73,22 @@ def make_optimizer(params, lr: float, opti_eps: float = 1e-5, weight_decay: floa
             "weight decay and linear lr decay are not ported yet "
             "(ROADMAP.md, options of the ported modules)")
     return ClippedAdam(params, lr, opti_eps, max_grad_norm)
+
+
+def adam(params, lr: float) -> torch.optim.Adam:
+    """The off-policy networks' ``optax.adam(lr)``: eps 1e-8, no clip
+    (off_policy_actors.py:57,122, q_critics.py:88-89)."""
+    return torch.optim.Adam(params, lr=lr, eps=1e-8)
+
+
+@torch.no_grad()
+def soft_update(target: nn.Module, source: nn.Module, polyak: float) -> None:
+    """θ′ ← (1−τ)θ′ + τθ over the parameters, in place (common.py:85-87),
+    written out as the JAX package writes it: two products and a sum, each
+    rounded (``torch.lerp`` rounds otherwise)."""
+    t = list(target.parameters())
+    torch._foreach_mul_(t, 1.0 - polyak)
+    torch._foreach_add_(t, torch._foreach_mul(list(source.parameters()), polyak))
 
 
 def huber_loss(error: torch.Tensor, delta: float) -> torch.Tensor:

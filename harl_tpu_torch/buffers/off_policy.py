@@ -1,0 +1,134 @@
+"""Device-resident off-policy replay buffer with n-step sampling
+(counterpart of ``harl_tpu/buffers/off_policy.py``, EP layout).
+
+  * layout: a flat ring of ``buffer_size`` preallocated rows on the runner's
+    device; one insert writes the ``n_rollout_threads`` rows of one step, so
+    consecutive steps of one thread are ``n_threads`` rows apart;
+  * ``next(idx) = (idx + (1 − end_flag[idx])·n_threads) % buffer_size``;
+  * ``end_flag`` = dones, plus the newest row of every thread (its episode
+    has not finished yet);
+  * the n-step reward is accumulated backwards with restarts at end flags,
+    and every sample carries its own γⁿ.
+
+Per-agent obs, action and valid-transition columns are lists of tensors, so
+heterogeneous widths need no padding. ``idx`` and ``cur_size`` are host
+ints: the host knows how many rows it inserted, so no insert or sample waits
+on the device. The FP layout is on the roadmap.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import torch
+
+FP_TODO = ("the FP replay buffer (init_buffer_fp, sample_fp) is not ported yet "
+           "(ROADMAP.md, Queue A: what the off-policy path left)")
+
+
+class Sample(NamedTuple):
+    share_obs: torch.Tensor                 # (batch, ds)
+    obs: List[torch.Tensor]                 # per agent (batch, do_i)
+    actions: List[torch.Tensor]             # per agent (batch, da_i)
+    rewards: torch.Tensor                   # (batch, 1) n-step accumulated
+    dones: torch.Tensor                     # (batch, 1) at the last n-step row
+    valid_transitions: List[torch.Tensor]   # per agent (batch, 1)
+    terms: torch.Tensor                     # (batch, 1) at the last n-step row
+    next_share_obs: torch.Tensor
+    next_obs: List[torch.Tensor]
+    gamma: torch.Tensor                     # (batch, 1) per-sample γⁿ
+
+
+PER_AGENT = ("obs", "next_obs", "actions", "valid_transitions")
+
+
+class ReplayBuffer:
+    """A ring of ``buffer_size`` rows; ``insert`` writes one step of B rows
+    in place."""
+
+    def __init__(self, buffer_size: int, share_obs_dim: int, obs_dims: Sequence[int],
+                 act_dims: Sequence[int], device=None):
+        S = buffer_size
+
+        def z(d):
+            return torch.zeros((S, d), device=device)
+
+        self.buffer_size = S
+        self.share_obs, self.next_share_obs = z(share_obs_dim), z(share_obs_dim)
+        self.obs = [z(d) for d in obs_dims]
+        self.next_obs = [z(d) for d in obs_dims]
+        self.actions = [z(d) for d in act_dims]
+        self.valid_transitions = [torch.ones((S, 1), device=device) for _ in obs_dims]
+        self.rewards, self.dones, self.terms = z(1), z(1), z(1)
+        self.idx = 0        # next row to write
+        self.cur_size = 0   # rows written so far, at most S
+
+    def insert(self, batch: dict) -> None:
+        """Write one vectorised step: ``batch`` has share_obs, next_share_obs,
+        rewards, dones, terms (B, ·) and per-agent lists obs, next_obs,
+        actions, valid_transitions (B, ·)."""
+        S, B = self.buffer_size, batch["share_obs"].shape[0]
+        # rows (idx + arange(B)) % S as at most two slices
+        first = min(B, S - self.idx)
+        spans = [(self.idx, 0, first)] + ([(0, first, B - first)] if first < B else [])
+        pairs = [(getattr(self, k), batch[k]) for k in
+                 ("share_obs", "next_share_obs", "rewards", "dones", "terms")]
+        for k in PER_AGENT:
+            pairs += list(zip(getattr(self, k), batch[k]))
+        for dst, src in pairs:
+            for row, start, n in spans:
+                dst[row: row + n].copy_(src[start: start + n])
+        self.idx = (self.idx + B) % S
+        self.cur_size = min(self.cur_size + B, S)
+
+    def end_flag(self, n_threads: int) -> torch.Tensor:
+        """dones, plus each thread's newest row (S,) bool (buffer_ep.py:156-164)."""
+        cur = max(self.cur_size, 1)
+        flag = self.dones[:, 0] > 0
+        unfinished = (self.idx - 1 + cur - torch.arange(n_threads, device=flag.device)) % cur
+        return flag.index_fill_(0, unfinished, True)
+
+    def sample(self, batch_size: int, n_step: int, gamma: float, n_threads: int,
+               noise=None, start: Optional[torch.Tensor] = None) -> Sample:
+        """``batch_size`` starts drawn with replacement from the rows written
+        (``noise.indices``), or ``start`` as given, each walked ``n_step``
+        steps of its thread (buffer_ep.py:40-148)."""
+        S = self.buffer_size
+        end_flag = self.end_flag(n_threads).long()
+        if start is None:
+            start = noise.indices(batch_size, max(self.cur_size, 1))
+        visited, idx = [], start
+        for _ in range(n_step):
+            visited.append(idx)
+            idx = (idx + (1 - end_flag[idx]) * n_threads) % S
+        final = visited[-1]
+        # backwards over the walk: the reward restarts at an end flag, and
+        # γ's exponent is the step count up to the first end flag
+        rew = torch.zeros((start.shape[0], 1), device=start.device)
+        steps = torch.full((start.shape[0],), float(n_step), device=start.device)
+        for n in range(n_step - 1, -1, -1):
+            now = visited[n]
+            ef = end_flag[now] > 0
+            steps = torch.where(ef, float(n + 1), steps)
+            rew = torch.where(ef[:, None], 0.0, rew)
+            rew = self.rewards[now] + gamma * rew
+        take = lambda arr, i: arr.index_select(0, i)
+        return Sample(
+            share_obs=take(self.share_obs, start),
+            obs=[take(o, start) for o in self.obs],
+            actions=[take(a, start) for a in self.actions],
+            rewards=rew,
+            dones=take(self.dones, final),
+            valid_transitions=[take(v, start) for v in self.valid_transitions],
+            terms=take(self.terms, final),
+            next_share_obs=take(self.next_share_obs, final),
+            next_obs=[take(o, final) for o in self.next_obs],
+            gamma=torch.pow(gamma, steps)[:, None],
+        )
+
+
+def init_buffer_fp(*args, **kwargs):
+    raise NotImplementedError(FP_TODO)
+
+
+def sample_fp(*args, **kwargs):
+    raise NotImplementedError(FP_TODO)

@@ -4,6 +4,11 @@
 [Linear → activation → LayerNorm] per hidden layer, orthogonal weight init
 with the activation's gain and zero bias (reference: harl/models/base/mlp.py).
 The LayerNorms use eps=1e-6, flax's default, not torch's 1e-5.
+
+``PlainMLP``: [Linear → activation] stacks without LayerNorm, the last
+layer with its own activation (reference: harl/models/base/plain_mlp.py),
+for the off-policy networks. Its layers take flax ``Dense``'s default init,
+LeCun normal truncated at two standard deviations with a zero bias.
 """
 from __future__ import annotations
 
@@ -58,6 +63,35 @@ def make_linear(in_dim: int, out_dim: int, init, device, generator) -> nn.Linear
         init(layer.weight, generator)
         layer.bias.zero_()
     return layer
+
+
+def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's default Dense kernel init: variance_scaling(1, fan_in,
+    truncated_normal), a normal truncated to ±2σ rescaled to variance 1/fan_in."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+class PlainMLP(nn.Module):
+    """Reference PlainMLP (plain_mlp.py): ``sizes`` includes the output width;
+    the last layer uses ``final_activation_func``."""
+
+    def __init__(self, in_dim: int, sizes: Sequence[int], activation_func: str = "relu",
+                 final_activation_func: str = "identity",
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = [in_dim, *sizes]
+        self.fc = nn.ModuleList(
+            make_linear(a, b, lecun_normal_, device, generator)
+            for a, b in zip(dims[:-1], dims[1:]))
+        self.acts = [ACTIVATIONS[activation_func]] * (len(sizes) - 1) + [
+            ACTIVATIONS[final_activation_func]]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fc, act in zip(self.fc, self.acts):
+            x = act(fc(x))
+        return x
 
 
 class MLPBase(nn.Module):

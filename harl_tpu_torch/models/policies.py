@@ -1,7 +1,8 @@
 """Policy models (counterpart of ``harl_tpu/models/policies.py``).
 
 ``StochasticPolicy``: MLPBase → optional GRU → ACTLayer. The CNN path is on
-the roadmap.
+the roadmap. The off-policy actors: ``SquashedGaussianPolicy`` (HASAC, Box)
+and ``DeterministicPolicy`` (HADDPG/HATD3/MADDPG/MATD3), on ``PlainMLP``.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from torch import nn
 
 from harl_tpu_torch.models.act import ACTLayer
-from harl_tpu_torch.models.mlp import MLPBase
+from harl_tpu_torch.models.mlp import MLPBase, PlainMLP, lecun_normal_, make_linear
 from harl_tpu_torch.models.rnn import GRUStack
 
 
@@ -55,3 +56,41 @@ class StochasticPolicy(nn.Module):
                                                  self.rnn.hidden_size)
             x, rnn_states = self.rnn(x, rnn_states, masks, seq)
         return self.act(x), rnn_states
+
+
+class SquashedGaussianPolicy(nn.Module):
+    """SAC policy (squashed_gaussian_policy.py): PlainMLP torso → ``mu`` and
+    ``log_std`` heads. ``forward(obs)`` → (mu, log_std); the squash and the
+    log-prob correction are ``ops.distributions.squashed_gaussian_sample``."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden_sizes: Sequence[int] = (256, 256),
+                 activation_func: str = "relu", device=None, generator=None):
+        super().__init__()
+        self.net = PlainMLP(obs_dim, hidden_sizes, activation_func, activation_func,
+                            device, generator)
+        h = hidden_sizes[-1]
+        self.mu = make_linear(h, act_dim, lecun_normal_, device, generator)
+        self.log_std = make_linear(h, act_dim, lecun_normal_, device, generator)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.net(obs)
+        return self.mu(x), self.log_std(x)
+
+
+class DeterministicPolicy(nn.Module):
+    """DDPG/TD3 actor (deterministic_policy.py): PlainMLP with a final
+    activation (tanh) rescaled affinely to [low, high]."""
+
+    def __init__(self, obs_dim: int, low: Sequence[float], high: Sequence[float],
+                 hidden_sizes: Sequence[int] = (256, 256), activation_func: str = "relu",
+                 final_activation_func: str = "tanh", device=None, generator=None):
+        super().__init__()
+        self.pi = PlainMLP(obs_dim, tuple(hidden_sizes) + (len(low),), activation_func,
+                           final_activation_func, device, generator)
+        low = torch.tensor(low, dtype=torch.float32, device=device)
+        high = torch.tensor(high, dtype=torch.float32, device=device)
+        self.register_buffer("half_range", (high - low) / 2.0, persistent=False)
+        self.register_buffer("mid", (high + low) / 2.0, persistent=False)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.half_range * self.pi(obs) + self.mid

@@ -2,6 +2,8 @@
 
 ``VNet``: MLPBase → optional GRU → scalar head with the configured init at
 gain 1.0 (v_net.py:41-44). The CNN path is on the roadmap.
+``ContinuousQNet``: Q(s, joint action) on a PlainMLP, for the off-policy
+critics.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from harl_tpu_torch.models.mlp import MLPBase, get_init, make_linear
+from harl_tpu_torch.models.mlp import MLPBase, PlainMLP, get_init, make_linear
 from harl_tpu_torch.models.policies import recurrent_inputs
 from harl_tpu_torch.models.rnn import GRUStack
 
@@ -42,3 +44,18 @@ class VNet(nn.Module):
                                                  self.rnn.hidden_size)
             x, rnn_states = self.rnn(x, rnn_states, masks, seq)
         return self.v_out(x), rnn_states
+
+
+class ContinuousQNet(nn.Module):
+    """Q(s, joint a) (continuous_q_net.py): concat(state, joint action) →
+    PlainMLP → scalar. Callers concatenate the agents' actions."""
+
+    def __init__(self, share_obs_dim: int, joint_action_dim: int,
+                 hidden_sizes: Sequence[int] = (256, 256), activation_func: str = "relu",
+                 device=None, generator=None):
+        super().__init__()
+        self.mlp = PlainMLP(share_obs_dim + joint_action_dim, tuple(hidden_sizes) + (1,),
+                            activation_func, "identity", device, generator)
+
+    def forward(self, cent_obs: torch.Tensor, joint_actions: torch.Tensor) -> torch.Tensor:
+        return self.mlp(torch.cat([cent_obs, joint_actions], dim=-1))

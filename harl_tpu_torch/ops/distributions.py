@@ -10,16 +10,20 @@ The on-policy heads are ported:
   as ``sigmoid(log_std / std_x_coef) * std_y_coef`` (distributions.py:76-89);
   sampling takes standard-normal noise as an argument.
 
-So a caller (or a test) decides where the noise comes from. The squashed
-Gaussian and ST-Gumbel of the off-policy stack are on the roadmap.
+* ``squashed_gaussian_sample``, HASAC's tanh-squashed Gaussian
+  (distributions.py:120-147), with the standard-normal draw passed in.
+
+So a caller (or a test) decides where the noise comes from. The ST-Gumbel
+of discrete HASAC is on the roadmap.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 MASK_LOGIT = -1e10
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -93,3 +97,31 @@ def diag_gaussian_std(log_std: torch.Tensor, std_x_coef: float,
                       std_y_coef: float) -> torch.Tensor:
     """sigmoid(log_std/std_x_coef)·std_y_coef (distributions.py:87)."""
     return torch.sigmoid(log_std / std_x_coef) * std_y_coef
+
+
+# The JAX package's floor on the squashed Gaussian's log-std, -5 (std >=
+# 6.7e-3), not the reference's -20: it bounds the per-dim log-prob where the
+# std head saturates (distributions.py:111-121).
+LOG_STD_MIN = -5.0
+LOG_STD_MAX = 2.0
+
+
+class SquashedGaussianSample(NamedTuple):
+    action: torch.Tensor    # (..., d), scaled to act_limit
+    log_prob: torch.Tensor  # (..., 1), summed over dims with the tanh correction
+
+
+def squashed_gaussian_sample(mu: torch.Tensor, log_std: torch.Tensor,
+                             eps: Optional[torch.Tensor], act_limit: float,
+                             deterministic: bool = False) -> SquashedGaussianSample:
+    """mu + std·eps, tanh-squashed and scaled to ``act_limit``; ``eps`` is
+    standard-normal noise of mu's shape (unused when ``deterministic``).
+    The log-prob subtracts Σ 2(log 2 − a − softplus(−2a))."""
+    log_std = torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX)
+    std = torch.exp(log_std)
+    pre = mu if deterministic else mu + std * eps
+    logp = (-((pre - mu) ** 2) / (2 * std ** 2) - log_std - _LOG_SQRT_2PI).sum(
+        dim=-1, keepdim=True)
+    correction = 2.0 * (math.log(2.0) - pre - F.softplus(-2.0 * pre))
+    logp = logp - correction.sum(dim=-1, keepdim=True)
+    return SquashedGaussianSample(torch.tanh(pre) * act_limit, logp)

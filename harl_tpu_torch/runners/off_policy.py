@@ -1,0 +1,383 @@
+"""Off-policy HARL runner (counterpart of ``harl_tpu/runners/off_policy.py``):
+HASAC, HADDPG, HATD3, MADDPG and MATD3 on one replay buffer.
+
+  warmup_block  — ``warmup_steps // n_rollout_threads`` steps of uniform
+                  random actions, inserted into the replay buffer;
+  collect_block — ``train_interval`` steps of the exploration policies;
+  train_block   — ``update_per_train × train_interval`` updates, each: an
+                  n-step sample, the critic's TD step, and every
+                  ``policy_freq`` updates the actors (sequential in random or
+                  fixed order for HA algorithms, simultaneous against the
+                  buffer's actions for MA ones) and the polyak target updates.
+
+Each block updates the state in place and returns it, with its metrics as
+tensors on the device; no block waits on the device. Insert bookkeeping
+(off_policy_base_runner.py:353-442): valid = 1 − agent deaths before the
+step, terms = env done ∧ ¬truncation, next obs and state at an episode end
+are the pre-reset ones (``Transition.final``), the EP reward is agent 0's,
+and the episode return adds the mean reward over agents.
+
+Ported: the EP state, Box actions, pure-tensor envs. FP states,
+``share_param``, HAD3QN, discrete actions, host envs and the training loop
+(``run``/``evaluate``, checkpoints, meshes) raise ``NotImplementedError``
+naming their roadmap item.
+
+Randomness comes from one ``torch.Generator`` per runner on its device, and
+one on the host for the agent orders, both seeded by ``init_state(seed)``,
+through a noise source (``utils/noise.py``). Its draws, in order:
+
+  init_state      the env reset;
+  warmup, a step  ``uniform((B, d_i))`` per agent, then the env's reset draws;
+  collect, a step ``action_noise((B, d_i))`` per agent, then the env's reset draws;
+  train, an update
+                  ``indices(batch_size, rows written)``; the next-action
+                  normals (HASAC) or target smoothing normals (HATD3, MATD3)
+                  ``(batch, d_i)`` in agent order; then, on a policy step,
+                  HASAC's initial-action normals in agent order, the agent
+                  permutation (HA algorithms, unless ``fixed_order``), and
+                  HASAC's normal of agent i in update order, used both for
+                  its loss and for its action after its step.
+
+HADDPG draws nothing in an update but the indices and the permutation;
+MADDPG draws only the indices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, NamedTuple
+
+import torch
+
+from harl_tpu_torch.algos.common import adam, soft_update
+from harl_tpu_torch.algos.off_policy_actors import (HADDPGActor, HASACActor, HATD3Actor,
+                                                    OffPolicyAgentState)
+from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, QCriticState,
+                                            SoftTwinContinuousQCritic, TwinContinuousQCritic)
+from harl_tpu_torch.buffers.off_policy import FP_TODO, ReplayBuffer, Sample
+from harl_tpu_torch.envs import make_env
+from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.utils.device import DeviceLike, resolve_device
+from harl_tpu_torch.utils.noise import GeneratorNoise
+
+ACTOR_REGISTRY = {"haddpg": HADDPGActor, "hatd3": HATD3Actor, "hasac": HASACActor,
+                  "maddpg": HADDPGActor, "matd3": HATD3Actor}
+CRITIC_REGISTRY = {"haddpg": ContinuousQCritic, "maddpg": ContinuousQCritic,
+                   "hatd3": TwinContinuousQCritic, "matd3": TwinContinuousQCritic,
+                   "hasac": SoftTwinContinuousQCritic}
+MA_ALGOS = ("maddpg", "matd3")          # simultaneous updates with buffer actions
+SMOOTHED = ("hatd3", "matd3")           # target smoothing noise
+# envs the JAX package steps on the host (real MuJoCo, GRF)
+HOST_ENVS = ("mamujoco", "football")
+TODO = "(ROADMAP.md, Queue A: what the off-policy path left)"
+
+
+class OffRolloutCarry(NamedTuple):
+    env_state: Any
+    obs: torch.Tensor            # (B, N, max_obs)
+    share_obs: torch.Tensor      # (B, ds)
+    agent_deaths: torch.Tensor   # (B, N, 1)
+    ep_ret: torch.Tensor         # (B,)
+
+
+@dataclasses.dataclass
+class OffPolicyState:
+    actors: List[OffPolicyAgentState]
+    critic: QCriticState
+    buffer: ReplayBuffer
+    carry: OffRolloutCarry
+    total_it: int = 0            # updates so far, a host int
+
+
+class OffPolicyRunner:
+    """``args``: {"algo", "env", …}; ``algo_args``: the YAML sections
+    (train/model/algo); ``env_args``: env kwargs. ``device`` is CUDA unless
+    given; ``noise`` replaces the generator-backed noise source."""
+
+    def __init__(self, args: dict, algo_args: dict, env_args: dict,
+                 device: DeviceLike = None, noise=None):
+        self.device = resolve_device(device)
+        self.algo = args["algo"]
+        if self.algo == "had3qn":
+            raise NotImplementedError(f"had3qn (DuelingQNet, DiscreteQCritic) is not "
+                                      f"ported yet {TODO}")
+        if self.algo not in ACTOR_REGISTRY:
+            raise NotImplementedError(f"off-policy algo {self.algo!r} is unknown")
+        tr, al, md = algo_args["train"], algo_args["algo"], algo_args["model"]
+        self.n_rollout_threads = tr["n_rollout_threads"]
+        self.warmup_steps = tr.get("warmup_steps", 10000)
+        self.train_interval = tr.get("train_interval", 50)
+        self.update_per_train = tr.get("update_per_train", 1)
+        self.use_proper_time_limits = tr.get("use_proper_time_limits", True)
+        self.batch_size = al["batch_size"]
+        self.buffer_size = al["buffer_size"]
+        self.n_step = al.get("n_step", 1)
+        self.gamma = al.get("gamma", 0.99)
+        self.policy_freq = al.get("policy_freq", 1)
+        self.fixed_order = al.get("fixed_order", False)
+        self.use_policy_active_masks = al.get("use_policy_active_masks", True)
+        self.auto_alpha = al.get("auto_alpha", False)
+        self.alpha_fixed = al.get("alpha", 0.2)
+        self.alpha_lr = al.get("alpha_lr", 3e-4)
+        if al.get("share_param", False):
+            raise NotImplementedError(f"off-policy share_param is not ported yet {TODO}")
+        if args["env"] in HOST_ENVS:
+            raise NotImplementedError(
+                f"host env {args['env']!r}: the port has no host-env runner path yet "
+                "(ROADMAP.md, tooling)")
+
+        env = make_env(args["env"], env_args, self.device)
+        self.env = env
+        self.vec = VecEnv(env, self.n_rollout_threads)
+        self.n_agents = env.n_agents
+        self.act_spaces = env.action_space
+        self.obs_dims = [sp.shape[0] for sp in env.observation_space]
+        self.share_obs_dim = env.share_observation_space[0].shape[0]
+        if getattr(env, "state_type", env_args.get("state_type", "EP")) == "FP":
+            raise NotImplementedError(f"the off-policy FP state: {FP_TODO}")
+
+        cfg = {**al, **md, "use_proper_time_limits": self.use_proper_time_limits,
+               "use_valuenorm": tr.get("use_valuenorm", False)}
+        # the actors refuse discrete action spaces
+        self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
+                                                 self.device)
+                       for i in range(self.n_agents)]
+        self.act_dims = [actor.act_dim for actor in self.actors]
+        self.critic = CRITIC_REGISTRY[self.algo](self.share_obs_dim, self.act_spaces, cfg,
+                                                 self.device)
+        # HASAC's target entropy per agent: −dim of its Box
+        self.target_entropy = [-float(d) for d in self.act_dims]
+        self.generator = torch.Generator(device=self.device)
+        self.host_generator = torch.Generator()
+        self.noise = noise if noise is not None else GeneratorNoise(
+            self.generator, self.device, self.host_generator)
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, seed: int) -> OffPolicyState:
+        """Seed the generator, reset the envs, build fresh networks (targets
+        equal to them) and an empty replay buffer."""
+        self.generator.manual_seed(seed)
+        self.host_generator.manual_seed(seed)
+        env_state, ts = self.vec.reset(self.noise)
+        actors = []
+        for actor in self.actors:
+            st = actor.init(self.generator)
+            if self.algo == "hasac" and self.auto_alpha:
+                st.log_alpha = torch.zeros((), device=self.device, requires_grad=True)
+                st.alpha_opt = adam([st.log_alpha], self.alpha_lr)
+            actors.append(st)
+        critic = self.critic.init(self.generator)
+        buf = ReplayBuffer(self.buffer_size, self.share_obs_dim, self.obs_dims, self.act_dims,
+                           self.device)
+        B, N = self.n_rollout_threads, self.n_agents
+        carry = OffRolloutCarry(env_state=env_state, obs=ts.obs, share_obs=ts.share_obs,
+                                agent_deaths=torch.zeros((B, N, 1), device=self.device),
+                                ep_ret=torch.zeros(B, device=self.device))
+        return OffPolicyState(actors, critic, buf, carry)
+
+    # --------------------------------------------------------------- helpers
+    def _alpha(self, st) -> Any:
+        """α of an actor (its log α under auto-α) or of the critic."""
+        if self.auto_alpha:
+            return torch.exp(st.log_alpha.detach())
+        return self.alpha_fixed
+
+    def _obs_i(self, obs: torch.Tensor, i: int) -> torch.Tensor:
+        return obs[:, i, : self.obs_dims[i]]
+
+    def _env_actions(self, actors: List[OffPolicyAgentState], carry: OffRolloutCarry):
+        """Every agent's exploration action: (stacked (B, N, d), per agent)."""
+        B = self.n_rollout_threads
+        acts = []
+        for i, actor in enumerate(self.actors):
+            eps = self.noise.action_noise((B, self.act_dims[i]))
+            acts.append(actor.get_actions(actors[i].net, self._obs_i(carry.obs, i), eps))
+        return torch.stack(acts, dim=1), acts
+
+    def _random_actions(self):
+        B = self.n_rollout_threads
+        acts = [actor.random_actions(self.noise.uniform((B, self.act_dims[i])))
+                for i, actor in enumerate(self.actors)]
+        return torch.stack(acts, dim=1), acts
+
+    def _env_step_insert(self, state: OffPolicyState, stacked: torch.Tensor,
+                         acts: List[torch.Tensor]):
+        """Step the envs, insert the step; returns (episode returns emitted,
+        episodes ended, mean step reward), each on the device."""
+        carry, N = state.carry, self.n_agents
+        tr = self.vec.step(carry.env_state, stacked, self.noise)
+        ts, final = tr.ts, tr.final
+        done_env = final.dones.all(dim=1, keepdim=True).to(torch.float32)       # (B, 1)
+        terms = done_env * (1.0 - final.bad_transition.to(torch.float32)[:, None])
+        valid = 1.0 - carry.agent_deaths                                       # (B, N, 1)
+        new_deaths = torch.where(done_env[:, :, None] > 0, 0.0,
+                                 final.dones[..., None].to(torch.float32))
+        state.buffer.insert(dict(
+            share_obs=carry.share_obs,
+            obs=[self._obs_i(carry.obs, i) for i in range(N)],
+            actions=acts,
+            rewards=final.rewards[:, 0],
+            dones=done_env,
+            valid_transitions=[valid[:, i] for i in range(N)],
+            terms=terms,
+            next_share_obs=final.share_obs,
+            next_obs=[self._obs_i(final.obs, i) for i in range(N)]))
+        done = done_env[:, 0] > 0
+        ep_ret = carry.ep_ret + final.rewards[:, :, 0].mean(dim=1)
+        state.carry = OffRolloutCarry(env_state=tr.state, obs=ts.obs, share_obs=ts.share_obs,
+                                      agent_deaths=new_deaths,
+                                      ep_ret=torch.where(done, 0.0, ep_ret))
+        return torch.where(done, ep_ret, 0.0), done.to(torch.float32), final.rewards.mean()
+
+    # ---------------------------------------------------------------- blocks
+    @torch.no_grad()
+    def warmup_block(self, state: OffPolicyState) -> OffPolicyState:
+        """Fill the buffer with uniform random actions."""
+        for _ in range(max(self.warmup_steps // self.n_rollout_threads, 1)):
+            self._env_step_insert(state, *self._random_actions())
+        return state
+
+    @torch.no_grad()
+    def collect_block(self, state: OffPolicyState):
+        """``train_interval`` exploration steps with inserts."""
+        emitted, counts, rewards = [], [], []
+        for _ in range(self.train_interval):
+            e, c, r = self._env_step_insert(state, *self._env_actions(state.actors,
+                                                                      state.carry))
+            emitted.append(e)
+            counts.append(c)
+            rewards.append(r)
+        return state, dict(episode_return_sum=torch.stack(emitted).sum(),
+                           episode_count=torch.stack(counts).sum(),
+                           mean_step_reward=torch.stack(rewards).mean())
+
+    def train_block(self, state: OffPolicyState):
+        """``update_per_train × train_interval`` updates; the metrics hold the
+        mean critic loss."""
+        losses = [self.update(state) for _ in range(self.update_per_train * self.train_interval)]
+        return state, dict(critic_loss=torch.stack(losses).mean())
+
+    def update(self, state: OffPolicyState) -> torch.Tensor:
+        """One update (one iteration of the JAX ``train_block``'s scan);
+        returns the critic loss."""
+        sp = state.buffer.sample(self.batch_size, self.n_step, self.gamma,
+                                 self.n_rollout_threads, self.noise)
+        state.total_it += 1
+        actors = state.actors
+        if self.algo == "hasac":
+            with torch.no_grad():
+                next_acts, next_logps = [], []
+                for i, actor in enumerate(self.actors):
+                    eps = self.noise.action_noise((self.batch_size, self.act_dims[i]))
+                    a, lp = actor.get_actions_with_logprobs(actors[i].net, sp.next_obs[i], eps)
+                    next_acts.append(a)
+                    next_logps.append(lp)
+                next_logp = torch.cat(next_logps, dim=-1).sum(dim=-1, keepdim=True)
+            loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1), next_logp,
+                                     self._alpha(state.critic))
+        else:
+            with torch.no_grad():
+                next_acts = []
+                for i, actor in enumerate(self.actors):
+                    noise = (self.noise.action_noise((self.batch_size, self.act_dims[i]))
+                             if self.algo in SMOOTHED else None)
+                    next_acts.append(actor.get_target_actions(actors[i].target, sp.next_obs[i],
+                                                              noise))
+            loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1))
+        if state.total_it % self.policy_freq == 0:
+            self._policy_update(state, sp)
+        return loss
+
+    # ------------------------------------------------- per-algo actor update
+    def _policy_update(self, state: OffPolicyState, sp: Sample) -> None:
+        if self.algo == "hasac":
+            self._hasac_update(state, sp)
+        elif self.algo in MA_ALGOS:
+            self._ma_update(state, sp)
+        else:
+            self._ha_update(state, sp)
+        # soft updates (off_policy_ha_runner.py:236-239)
+        for st in state.actors:
+            soft_update(st.target, st.net, self.actors[0].polyak)
+        self.critic.soft_update_targets(state.critic)
+
+    def _step_actor(self, st: OffPolicyAgentState, loss: torch.Tensor) -> None:
+        """An Adam step of the actor on ``loss``, with gradients taken for
+        the actor's parameters only (the loss runs through the critic)."""
+        params = list(st.net.parameters())
+        for p, g in zip(params, torch.autograd.grad(loss, params)):
+            p.grad = g
+        st.opt.step()
+
+    def _joint(self, actions: List[torch.Tensor], i: int, a_i: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a_i if j == i else a for j, a in enumerate(actions)], dim=-1)
+
+    def _order(self) -> List[int]:
+        if self.fixed_order or self.n_agents == 1:
+            return list(range(self.n_agents))
+        return self.noise.permutation(self.n_agents).tolist()
+
+    def _ha_update(self, state: OffPolicyState, sp: Sample) -> None:
+        """HADDPG/HATD3 sequential updates (off_policy_ha_runner.py:206-235)."""
+        with torch.no_grad():
+            actions = [self.actors[i].get_actions(st.net, sp.obs[i])
+                       for i, st in enumerate(state.actors)]
+        for i in self._order():
+            actor, st = self.actors[i], state.actors[i]
+            joint = self._joint(actions, i, actor.get_actions(st.net, sp.obs[i]))
+            self._step_actor(st, -self.critic.get_values(state.critic, sp.share_obs,
+                                                         joint).mean())
+            with torch.no_grad():
+                actions[i] = actor.get_actions(st.net, sp.obs[i])
+
+    def _ma_update(self, state: OffPolicyState, sp: Sample) -> None:
+        """MADDPG/MATD3: simultaneous; the other agents take the buffer's
+        actions (off_policy_ma_runner.py:50-57)."""
+        for i, (actor, st) in enumerate(zip(self.actors, state.actors)):
+            joint = self._joint(sp.actions, i, actor.get_actions(st.net, sp.obs[i]))
+            self._step_actor(st, -self.critic.get_values(state.critic, sp.share_obs,
+                                                         joint).mean())
+
+    def _hasac_update(self, state: OffPolicyState, sp: Sample) -> None:
+        """HASAC sequential updates with per-agent and critic-side α
+        (off_policy_ha_runner.py:80-172)."""
+        actors, B = state.actors, self.batch_size
+        with torch.no_grad():
+            init = [self.actors[i].get_actions_with_logprobs(
+                st.net, sp.obs[i], self.noise.action_noise((B, self.act_dims[i])))
+                for i, st in enumerate(actors)]
+        actions = [a for a, _ in init]
+        logps = [lp for _, lp in init]
+        for i in self._order():
+            actor, st = self.actors[i], actors[i]
+            alpha_i = self._alpha(st)
+            eps_i = self.noise.action_noise((B, self.act_dims[i]))   # loss and re-sample
+            a_i, lp_i = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i)
+            q = self.critic.get_values(state.critic, sp.share_obs, self._joint(actions, i, a_i))
+            obj = q - alpha_i * lp_i.sum(dim=-1, keepdim=True)
+            if self.use_policy_active_masks:
+                vt = sp.valid_transitions[i]
+                loss = -(obj * vt).sum() / torch.clamp(vt.sum(), min=1e-9)
+            else:
+                loss = -obj.mean()
+            self._step_actor(st, loss)
+            if self.auto_alpha:
+                target = lp_i.detach().sum(dim=-1, keepdim=True) + self.target_entropy[i]
+                alpha_loss = -(st.log_alpha * target).mean()
+                st.alpha_opt.zero_grad(set_to_none=True)
+                alpha_loss.backward()
+                st.alpha_opt.step()
+                with torch.no_grad():
+                    st.log_alpha.clamp_(-16.0, 2.0)
+            with torch.no_grad():
+                actions[i], logps[i] = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i)
+        if self.auto_alpha:
+            logp_sum = torch.cat(logps, dim=-1).sum(dim=-1, keepdim=True)
+            self.critic.update_alpha(state.critic, logp_sum, float(sum(self.target_entropy)))
+
+    # ---------------------------------------------------------- not ported
+    def run(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the off-policy training loop (run, evaluate, eval_rollout, checkpoints, "
+            "meshes) is not ported yet (ROADMAP.md, tooling)")
+
+    evaluate = eval_rollout = run

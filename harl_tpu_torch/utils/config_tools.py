@@ -17,8 +17,9 @@ def get_defaults_yaml_args(algo: str, env: str) -> Tuple[Dict, Dict]:
     for path in (algo_path, env_path):
         if not path.exists():
             raise NotImplementedError(
-                f"{path.name}: the port ships only happo.yaml, "
-                "mamujoco_jax.yaml and smaclite.yaml so far (ROADMAP.md, Queue A)"
+                f"{path.name}: the port ships only happo.yaml, hasac.yaml, haddpg.yaml, "
+                "hatd3.yaml, maddpg.yaml, matd3.yaml, mamujoco_jax.yaml and "
+                "smaclite.yaml so far (ROADMAP.md, Queue A)"
             )
     with open(algo_path) as f:
         algo_args = yaml.safe_load(f)

@@ -7,11 +7,14 @@ imports JAX. A flax ``Dense.kernel`` is (in, out) and a torch
 ``scale``/``bias`` map to ``weight``/``bias``. The GRU's fused weights
 (``rnn/wi{i}``, ``wh{i}``, ``bi{i}``, ``bh{i}``) keep the flax layout and copy
 as they are, its output LayerNorm is ``rnn/norm``. Covers ``StochasticPolicy``
-(MLP, optional GRU, Box or Discrete head) and ``VNet`` (MLP, optional GRU).
+(MLP, optional GRU, Box or Discrete head) and ``VNet`` (MLP, optional GRU),
+and the off-policy networks on ``PlainMLP`` (``fc{i}`` → ``fc.{i}``):
+``SquashedGaussianPolicy``, ``DeterministicPolicy`` and ``ContinuousQNet``,
+the last also as a tuple of twin nets.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -71,3 +74,38 @@ def vnet_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
         out.update(_gru(p["rnn"]))
     out.update(_dense("v_out", p["v_out"]))
     return out
+
+
+def plain_mlp_state_dict(flax_params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``PlainMLP``: {fc0, fc1, …} → ``{prefix}fc.{i}``."""
+    p = _params(flax_params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(p)):
+        out.update(_dense(f"{prefix}fc.{i}", p[f"fc{i}"]))
+    return out
+
+
+def squashed_policy_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``SquashedGaussianPolicy``: {"net": {fc0, fc1}, "mu", "log_std"}."""
+    p = _params(flax_params)
+    out = plain_mlp_state_dict(p["net"], "net.")
+    out.update(_dense("mu", p["mu"]))
+    out.update(_dense("log_std", p["log_std"]))
+    return out
+
+
+def deterministic_policy_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``DeterministicPolicy``: {"pi": {fc0, fc1, fc2}}."""
+    return plain_mlp_state_dict(_params(flax_params)["pi"], "pi.")
+
+
+def q_net_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``ContinuousQNet``: {"mlp": {fc0, fc1, fc2}}."""
+    return plain_mlp_state_dict(_params(flax_params)["mlp"], "mlp.")
+
+
+def q_nets_state_dict(flax_params: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """A tuple of ``ContinuousQNet`` parameters (one, or twins) → the
+    ``state_dict`` of an ``nn.ModuleList`` of them."""
+    return {f"{i}.{k}": v for i, p in enumerate(flax_params)
+            for k, v in q_net_state_dict(p).items()}

@@ -2,30 +2,38 @@
 
 The JAX package derives every draw from explicit PRNG keys. The port draws
 from one ``torch.Generator`` per runner through a noise source, an object
-with four methods that the runner and the vectorised env call in a fixed
-order each training iteration:
+with six methods that the runners and the vectorised env call in a fixed
+order (each runner's docstring gives its order):
 
-    action_noise(shape)                standard normal, one call per Box agent per step
+    action_noise(shape)                standard normal: a Box agent's action noise, and
+                                       the off-policy target and update normals
     gumbel_noise(shape)                standard Gumbel, one call per Discrete agent per step
     reset_noise(n_envs, dof)           (uniform [0, 1), standard normal), (n_envs, dof) each
-    permutation(n)                     a random permutation of range(n)
+    permutation(n)                     a random permutation of range(n); the host reads it
+    uniform(shape)                     uniform on [0, 1): the off-policy warmup actions
+    indices(n, high)                   n integers in [0, high), drawn with replacement:
+                                       the replay buffer's sample starts
 
 ``GeneratorNoise`` is the production source. A test can pass any object with
 the same methods, e.g. one that replays the JAX package's draws.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 
 class GeneratorNoise:
-    """Draws from ``generator`` and hands the result out on ``device``."""
+    """Draws from ``generator`` and hands the result out on ``device``. With
+    a ``host_generator`` (a CPU one), permutations are drawn from it and stay
+    on the host, so reading an agent order does not wait on the device."""
 
-    def __init__(self, generator: torch.Generator, device: torch.device):
+    def __init__(self, generator: torch.Generator, device: torch.device,
+                 host_generator: Optional[torch.Generator] = None):
         self.generator = generator
         self.device = torch.device(device)
+        self.host_generator = host_generator
 
     def _out(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device)
@@ -48,5 +56,15 @@ class GeneratorNoise:
         return self._out(u), self._out(n)
 
     def permutation(self, n: int) -> torch.Tensor:
+        if self.host_generator is not None:
+            return torch.randperm(n, generator=self.host_generator)
         return self._out(torch.randperm(n, generator=self.generator,
                                         device=self.generator.device))
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._out(torch.rand(tuple(shape), generator=self.generator,
+                                    device=self.generator.device))
+
+    def indices(self, n: int, high: int) -> torch.Tensor:
+        return self._out(torch.randint(0, high, (n,), generator=self.generator,
+                                       device=self.generator.device))

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from harl_tpu_torch.ops import gae_kernels
+from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.runners.on_policy import OnPolicyRunner
 from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
 
@@ -25,9 +26,9 @@ def _small_configs():
     return algo_args, env_args
 
 
-def test_imports_no_jax_and_no_harl_tpu():
-    """Every module of the package imports with JAX, flax and optax made
-    unimportable, and loads nothing of harl_tpu."""
+def _import_walk():
+    """Import every module of the package in a fresh process with JAX, flax,
+    optax and harl_tpu made unimportable; returns the module names."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "harl_tpu"):
@@ -41,13 +42,27 @@ def test_imports_no_jax_and_no_harl_tpu():
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "harl_tpu")
                         and sys.modules[m] is not None)
         assert not loaded, loaded
-        assert "harl_tpu_torch.runners.on_policy" in names, names
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    return out.stdout.split()
+
+
+def test_imports_no_jax_and_no_harl_tpu():
+    """Every module of the package imports with JAX, flax and optax made
+    unimportable, and loads nothing of harl_tpu."""
+    names = _import_walk()
+    assert "harl_tpu_torch.runners.on_policy" in names, names
+    assert len(names) >= 20
+
+
+def test_off_policy_modules_import_without_jax():
+    names = _import_walk()
+    for name in ("buffers.off_policy", "algos.q_critics", "algos.off_policy_actors",
+                 "runners.off_policy"):
+        assert f"harl_tpu_torch.{name}" in names, names
 
 
 def test_entry_points_default_to_cuda():
@@ -148,3 +163,63 @@ def test_smaclite_cpu_path_runs_when_asked():
     assert set(metrics["episode_metric_sums"]) == {"won", "dead_allies", "dead_enemies"}
     assert float(metrics["episode_count"]) >= 3.0      # every env truncated at least once
     assert state.carry.critic_rnn.shape == (9, 1, 8)   # FP: one row per (env, agent)
+
+
+# ---------------------------------------------------------------- off-policy
+def _off_policy_configs(algo="hasac"):
+    algo_args, env_args = get_defaults_yaml_args(algo, "mamujoco_jax")
+    algo_args["train"].update(n_rollout_threads=3, warmup_steps=6, train_interval=2)
+    algo_args["algo"].update(batch_size=8, buffer_size=50, n_step=2)
+    algo_args["model"].update(hidden_sizes=[8, 8])
+    env_args.update(agent_conf="2x3", episode_limit=3)
+    return algo_args, env_args
+
+
+def test_off_policy_runner_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    algo_args, env_args = _off_policy_configs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OffPolicyRunner({"algo": "hasac", "env": "mamujoco_jax"}, algo_args, env_args)
+
+
+def test_off_policy_unported_options_raise():
+    algo_args, env_args = _off_policy_configs()
+    hasac = {"algo": "hasac", "env": "mamujoco_jax"}
+    shared = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
+    shared["algo"]["share_param"] = True
+    with pytest.raises(NotImplementedError, match="share_param.*ROADMAP"):
+        OffPolicyRunner(hasac, shared, env_args, device="cpu")
+    with pytest.raises(NotImplementedError, match="FP.*ROADMAP"):
+        OffPolicyRunner(hasac, algo_args, dict(env_args, state_type="FP"), device="cpu")
+    with pytest.raises(NotImplementedError, match="had3qn.*ROADMAP"):
+        OffPolicyRunner({"algo": "had3qn", "env": "mamujoco_jax"}, algo_args, env_args,
+                        device="cpu")
+    # discrete HASAC: SMACLite's Discrete actions
+    with pytest.raises(NotImplementedError, match="Discrete.*ROADMAP"):
+        OffPolicyRunner({"algo": "hasac", "env": "smaclite"}, algo_args,
+                        {"map_name": "3m"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
+        OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,
+                        device="cpu")
+    runner = OffPolicyRunner(hasac, algo_args, env_args, device="cpu")
+    for entry in (runner.run, runner.evaluate):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            entry()
+
+
+@pytest.mark.parametrize("algo", ["hasac", "hatd3"])
+def test_off_policy_cpu_path_runs_when_asked(algo):
+    algo_args, env_args = _off_policy_configs(algo)
+    runner = OffPolicyRunner({"algo": algo, "env": "mamujoco_jax"}, algo_args, env_args,
+                             device="cpu")
+    state = runner.warmup_block(runner.init_state(0))
+    before = gae_kernels.gae.launches
+    for block in range(2):
+        state, cm = runner.collect_block(state)
+        state, tm = runner.train_block(state)
+    assert gae_kernels.gae.launches == before
+    assert state.buffer.cur_size == 6 + 2 * 2 * 3
+    assert state.total_it == 4
+    assert math.isfinite(float(tm["critic_loss"]))
+    assert tm["critic_loss"].device.type == "cpu"

@@ -60,12 +60,23 @@ def gumbel_noise(key, shape):
     return np.asarray(jax.random.gumbel(key, shape))
 
 
+def uniform(key, shape):
+    """``jax.random.uniform(key, shape)`` on [0, 1): the bits of a draw
+    with other bounds (the port scales it as JAX does)."""
+    return np.asarray(jax.random.uniform(key, shape))
+
+
+def normal(key, shape):
+    return np.asarray(jax.random.normal(key, shape))
+
+
 class ReplayNoise:
     """A noise source that hands out queued draws, raising if the port asks
     for something other than what was queued."""
 
     def __init__(self):
         self.actions, self.gumbels, self.resets, self.perms = deque(), deque(), deque(), deque()
+        self.uniforms, self.starts = deque(), deque()
 
     def action_noise(self, shape):
         a = self.actions.popleft()
@@ -87,5 +98,16 @@ class ReplayNoise:
         assert p.shape == (n,), (p.shape, n)
         return torch.from_numpy(np.array(p)).long()
 
+    def uniform(self, shape):
+        u = self.uniforms.popleft()
+        assert u.shape == tuple(shape), (u.shape, tuple(shape))
+        return torch.from_numpy(np.array(u))
+
+    def indices(self, n, high):
+        high_q, idx = self.starts.popleft()
+        assert (idx.shape, high_q) == ((n,), high), (idx.shape, high_q, n, high)
+        return torch.from_numpy(np.array(idx)).long()
+
     def drained(self):
-        return not (self.actions or self.gumbels or self.resets or self.perms)
+        return not (self.actions or self.gumbels or self.resets or self.perms
+                    or self.uniforms or self.starts)
