@@ -5,9 +5,9 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, then the torch.profiler sessions of
-10, 6 and 8: a profiler session leaves the process slower, so every timed run
-comes before the first one.
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, then the torch.profiler
+sessions of 10, 6 and 8: a profiler session leaves the process slower, so
+every timed run comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -43,12 +43,31 @@ comes before the first one.
    [256, 256]) through ``OffPolicyRunner``: the warmup, one collect+train
    block, 3 timed blocks (env-steps/s), one more block split into collect
    and train; last, 3 more timed blocks, the device ops of one env step
-   with its actors and of one update, one more block under torch.profiler,
-   and 3 more timed blocks; the launch counts are zeroed before each part
-   and read after it (this path launches no kernel of the port);
+   with its actors and of one update, and one more block under
+   torch.profiler; the launch counts are zeroed before each part and read
+   after it (this path launches no kernel of the port);
 11. check one small HASAC and one small HATD3 block (warmup, collect,
    train) on the card against the same blocks on the CPU: the buffer's rows
-   and every parameter after training.
+   and every parameter after training;
+12. drive the CLI, ``harl_tpu_torch.train.main``, on the repo's tuned HATRPO
+   config for SMACLite 5m_vs_6m at its full widths (20 envs x 160 steps, FP,
+   GRU actors and critic, MLP [64, 64, 64]): 3 iterations with evaluation (10
+   episodes) and a checkpoint, into a temporary directory outside the repo;
+   the GAE kernel launched once an iteration; then a second ``main`` that
+   resumes from that checkpoint (its restored parameters, and those of a
+   fresh state restored from it, equal the checkpoint bitwise) and trains one
+   more iteration, with HATRPO's update timed by phase; then one more
+   rollout, on whose returns inputs (T=160, b=100) the GAE kernel is held
+   against its plain version and timed warm;
+13. drive the other CLI paths from their tuned configs without evaluation:
+   MAPPO with share_param and HAA2C with linear lr decay on HalfCheetah 2x3
+   (2 iterations each of 20 envs x 200 steps, and one HAA2C iteration with
+   ``use_gae False`` through the returns kernel), HASAC on HalfCheetah 6x1
+   (its warmup and 2 blocks);
+14. check one small iteration each of HATRPO on 3m (FP, GRU), HATRPO on
+   HalfCheetah 2x3 and MAPPO with share_param on HalfCheetah 2x3 on the card
+   against the CPU, with HATRPO's accepted line-search fractions printed for
+   both devices (and required equal).
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -60,8 +79,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -671,9 +692,9 @@ def drive_hasac_path(card: str, device="cuda") -> tuple:
     """HASAC at the bench's widths. ``main`` runs it before any torch.profiler
     session of the process. Returns (launches per kernel, a function that
     ``main`` calls after every other timed run: one more round of timed
-    blocks, the op counts, a profiled block and a last round of timed
-    blocks, and that returns the launches of that part). The rounds tell a
-    process that slows with age from one that a profiler session slows.
+    blocks, the op counts and a profiled block, and that returns the
+    launches of that part). The second round tells a process that slows
+    with age from a fresh one.
     Each timed block also reads the process's CPU time and the machine's
     steal time, to tell work in the process from a host that gives it less
     of its cores. None of the port's kernels is on this path."""
@@ -761,7 +782,6 @@ def drive_hasac_path(card: str, device="cuda") -> tuple:
               f"targets) {update_ops} ops, {update_ms:.3f} ms, on {card}", flush=True)
         profile_iteration(runner, state, card, statistics.median(t[0] for t in fresh),
                           label="hasac block", fn=block)
-        timed_round("after the profiler", HASAC["timed_blocks"])
         later = {"gae": K.gae.launches, "discounted_returns": K.discounted_returns.launches}
         if state.buffer.cur_size != rows or state.total_it != updates:
             raise AssertionError(f"buffer holds {state.buffer.cur_size} rows (expected {rows}), "
@@ -833,6 +853,335 @@ def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda")) -> None:
         f"episodes ended")
 
 
+# ------------------------------------------------------- the CLI (phases 12-14)
+CLI_HATRPO = "tuned_configs/smaclite/5m_vs_6m/hatrpo/config.json"
+CLI_MAPPO = "tuned_configs/mamujoco_jax/HalfCheetah-v2-2x3/mappo/config.json"
+CLI_HAA2C = "tuned_configs/mamujoco_jax/HalfCheetah-v2-2x3/haa2c/config.json"
+CLI_HASAC = "tuned_configs/mamujoco_jax/HalfCheetah-v2-6x1/hasac/config.json"
+
+
+class Spy:
+    """Wraps a method of a class for the duration of a ``with``: records the
+    wall time of each call (ending in ``torch.cuda.synchronize()``), the
+    object it was called on, its arguments and ``keep(result)``."""
+
+    def __init__(self, cls, name: str, sync: bool = True, keep=lambda out: out):
+        self.cls, self.name, self.sync, self.keep = cls, name, sync, keep
+        self.calls = []   # (seconds, self, args, keep(result))
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+
+        @functools.wraps(orig)
+        def wrapped(obj, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(obj, *args, **kwargs)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0, obj, args, self.keep(out)))
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def cli_args(config: str, shrink: dict) -> tuple:
+    """(the train section of ``config`` with ``shrink`` applied, the
+    ``--key value`` overrides of ``shrink``; with a device other than CUDA
+    in ``shrink["platform"]``, a rehearsal on it)."""
+    with open(config) as f:
+        train_args = json.load(f)["algo_args"]["train"]
+    train_args.update({k: v for k, v in shrink.items() if k in train_args})
+    argv = [x for k, v in shrink.items() for x in (f"--{k}", json.dumps(v) if
+                                                  isinstance(v, list) else str(v))]
+    return train_args, argv
+
+
+def zero_launches() -> None:
+    from harl_tpu_torch.ops import gae_kernels as K
+
+    K.gae.launches = 0
+    K.discounted_returns.launches = 0
+
+
+def read_launches() -> dict:
+    from harl_tpu_torch.ops import gae_kernels as K
+
+    return {"gae": K.gae.launches, "discounted_returns": K.discounted_returns.launches}
+
+
+def read_run(run_dir: str, n_agents: int, off_policy: bool = False) -> list:
+    """The log records of a run directory, checked: config.json, finite
+    losses, per-agent stats, a checkpoint."""
+    from pathlib import Path
+
+    run = Path(run_dir)
+    if not (run / "config.json").exists():
+        raise AssertionError(f"{run}: no config.json")
+    with open(run / "logs" / "progress.txt") as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r for r in recs if ("critic_loss" if off_policy else "value_loss") in r]
+    if not train_recs:
+        raise AssertionError(f"{run}: no training record in progress.txt")
+    for r in train_recs:
+        loss = r["critic_loss" if off_policy else "value_loss"]
+        if not math.isfinite(loss):
+            raise AssertionError(f"{run}: loss {loss} at step {r['steps']}")
+        if not off_policy and (len(r["agent_stats"]) != n_agents or not all(
+                math.isfinite(v) for a in r["agent_stats"] for v in a.values())):
+            raise AssertionError(f"{run}: agent stats {r['agent_stats']}")
+    if not any(d.startswith("ckpt_") for d in os.listdir(run / "models")):
+        raise AssertionError(f"{run}: no checkpoint")
+    return recs
+
+
+def hatrpo_phase_times(update_spy, timer) -> str:
+    """Per-agent HATRPO update seconds, FVPs and line-search tries."""
+    per_agent = [(t, actor.last_fvps, len(actor.last_tries), actor.last_fraction)
+                 for t, actor, _, _ in update_spy.calls]
+    phases = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.timings().items())
+    return (f"{len(per_agent)} agent updates, {statistics.mean(p[0] for p in per_agent):.4f} s "
+            f"each on average ({phases} an agent); FVPs {[p[1] for p in per_agent]}, "
+            f"line-search tries {[p[2] for p in per_agent]}, accepted fractions "
+            f"{[p[3] for p in per_agent]}")
+
+
+def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) -> tuple:
+    """Phase 12: the tuned HATRPO 5m_vs_6m config through
+    ``harl_tpu_torch.train.main`` at its full widths (20 envs x 160 steps,
+    FP, GRU, MLP [64, 64, 64]): 3 iterations with evaluation and a
+    checkpoint, a resume of one more iteration from that checkpoint, and a
+    split iteration in which the GAE kernel is held against its plain
+    version on the path's own inputs (T=160, b=100) and timed; HATRPO's
+    update is timed by phase in the resumed iteration. Returns (launches,
+    the in-situ GAE numbers)."""
+    from harl_tpu_torch import train
+    from harl_tpu_torch.algos.hatrpo import HATRPOActor
+    from harl_tpu_torch.ops import gae_kernels as K
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils import checkpoint
+    from harl_tpu_torch.utils.profiling import PhaseTimer
+
+    cfg, extra = cli_args(CLI_HATRPO, shrink or {})
+    T, n = cfg["episode_length"], cfg["n_rollout_threads"]
+    device = (shrink or {}).get("platform", "cuda")
+    zero_launches()
+    t0 = time.perf_counter()
+    with Spy(OnPolicyRunner, "train_iteration") as its:
+        run_dir = train.main(["--load_config", CLI_HATRPO, "--num_env_steps", str(3 * T * n),
+                              "--eval_episodes", "10", *extra, "--log_dir", log_dir])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["gae"] < 3 or launches["discounted_returns"] != 0:
+        raise AssertionError(f"cli hatrpo: launches {launches} (gae once an iteration)")
+    recs = read_run(run_dir, 5)
+    evals = [r for r in recs if "eval_return" in r]
+    if not evals or not math.isfinite(evals[-1]["eval_return"]) or \
+            "eval_win_rate" not in evals[-1]:
+        raise AssertionError(f"cli hatrpo: eval records {evals}")
+    if not os.path.isdir(os.path.join(run_dir, "models", f"ckpt_{3 * T * n}")):
+        raise AssertionError(f"cli hatrpo: no ckpt_{3 * T * n}")
+    times = [c[0] for c in its.calls]
+    print(f"cli hatrpo smaclite: HATRPO 5m_vs_6m FP GRU, tuned config ({n} envs x {T} steps, "
+          f"MLP {cfg_model_widths(its)}) through train.main: {len(times)} iterations of "
+          f"{', '.join(f'{t:.4f}' for t in times)} s; {2 * n * T / sum(times[1:]):.1f} env-steps/s "
+          f"over iterations 2-3; main {wall:.2f} s with eval (return "
+          f"{evals[-1]['eval_return']:.4f}, win rate {evals[-1]['eval_win_rate']:.4f}) and "
+          f"checkpoint; gae launched {launches['gae']} times on {card}", flush=True)
+
+    # a second run resumes from the first's checkpoint: the restored
+    # parameters equal the saved ones bitwise, and it trains one iteration
+    def net_copies(state):
+        return [{k: v.clone() for k, v in st.net.state_dict().items()}
+                for st in state.actors + [state.critic]]
+
+    # its iteration times HATRPO's update by phase (a sync at each end)
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    orig_update = HATRPOActor.update
+
+    def timed_update(actor, *args, **kwargs):
+        actor.timer = timer
+        try:
+            return orig_update(actor, *args, **kwargs)
+        finally:
+            actor.timer = None
+
+    zero_launches()
+    HATRPOActor.update = timed_update
+    try:
+        with Spy(OnPolicyRunner, "restore", sync=False, keep=net_copies) as restores, \
+                Spy(OnPolicyRunner, "train_iteration") as its2, \
+                Spy(HATRPOActor, "update") as updates:
+            run2 = train.main(["--load_config", CLI_HATRPO, "--num_env_steps", str(T * n),
+                               "--eval_episodes", "10", *extra, "--model_dir", run_dir,
+                               "--log_dir", log_dir + "_resumed"])
+    finally:
+        HATRPOActor.update = orig_update
+    resumed_launches = read_launches()
+    (_, runner, _, restored), = restores.calls
+    saved = checkpoint.restore_state(checkpoint.latest_checkpoint(run_dir), runner.device)
+    saved_nets = [s["net"] for s in saved["state"]["actors"] + [saved["state"]["critic"]]]
+    fresh_runner = OnPolicyRunner(runner.args, runner.algo_args, runner.env_args, device=device)
+    fresh = net_copies(fresh_runner.restore(fresh_runner.init_state(7), run_dir))
+    for nets in (restored, fresh):   # the resumed run's, and a fresh state's
+        for sd, sd_saved in zip(nets, saved_nets):
+            for k, v in sd.items():
+                if not torch.equal(v, sd_saved[k]):
+                    raise AssertionError(f"restore: {k} differs from the checkpoint")
+    if len(its2.calls) != 1 or resumed_launches["gae"] != 1:
+        raise AssertionError(f"resumed run: {len(its2.calls)} iterations, {resumed_launches}")
+    read_run(run2, 5)
+    trained = checkpoint.restore_state(checkpoint.latest_checkpoint(run2), runner.device)
+    if all(torch.equal(v, trained["state"]["actors"][0]["net"][k])
+           for k, v in saved["state"]["actors"][0]["net"].items()):
+        raise AssertionError("resumed run: the actor did not move")
+    print(f"cli hatrpo resume: restored parameters equal the checkpoint bitwise; one more "
+          f"iteration {its2.calls[0][0]:.4f} s (HATRPO's phases timed with a sync at each end), "
+          f"gae launched {resumed_launches['gae']} time; HATRPO: "
+          f"{hatrpo_phase_times(updates, timer)} on {card}", flush=True)
+    launches = {k: launches[k] + resumed_launches[k] for k in launches}
+
+    # one more rollout of the resumed runner, then the GAE kernel on its own
+    # inputs against the plain version
+    _, runner, (state,), _ = its2.calls[-1]
+    first_masks0 = state.carry.masks[:, 0]
+    t0 = time.perf_counter()
+    data = runner.rollout(state)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    c = state.carry
+    rewards, values, masks, bad = (None if x is None else x.contiguous()
+                                   for x in runner.returns_inputs(state, data, first_masks0,
+                                                                  c.share_obs, c.masks,
+                                                                  c.critic_rnn))
+    b = rewards.numel() // T
+    if tuple(rewards.shape) != (T, n, 5, 1):
+        raise AssertionError(f"GAE inputs of shape {tuple(rewards.shape)}")
+    args = (rewards, values, masks, bad, runner.gamma, runner.gae_lambda)
+    before = K.gae.launches
+    out = K.gae(*args)
+    torch.cuda.synchronize()
+    ref = K.gae_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    err = (out - ref).abs().max().item()
+    ms = time_warm(lambda: K.gae(*args), reps=200)[0]
+    K.gae.launches = before
+    bms, by = bound_ms("gae", T, b)
+    print(f"cli hatrpo rollout {rollout_s:.4f} s; gae on the path's own inputs (T={T}, b={b}): "
+          f"kernel == plain (max |err| {err:.3g}, rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); "
+          f"{ms * 1e3:.3f} us warm on the device, bound {bms * 1e3:.3f} us ({by}), share "
+          f"{bms / ms:.3f}; empty launch {floor['ms'] * 1e3:.3f} us, on {card}", flush=True)
+    return launches, dict(T=T, b=b, ms=ms, max_abs_err=err, bound_ms=bms, bound_by=by)
+
+
+def cfg_model_widths(spy) -> list:
+    return list(spy.calls[0][1].hidden_sizes)
+
+
+def drive_cli_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
+    """Phase 13: the other CLI paths from their tuned configs, without
+    evaluation: MAPPO with share_param on HalfCheetah 2x3 (2 iterations of
+    20 envs x 200 steps, MLP [128, 128, 128], 15 epochs), HAA2C with linear
+    lr decay (2 iterations, then one with ``use_gae False`` through the
+    returns kernel), and HASAC on HalfCheetah 6x1 (its warmup and 2
+    blocks). Returns the launches by path."""
+    from harl_tpu_torch import train
+
+    by_path = {}
+    for label, config, iterations, argv, n_agents, off, expect in (
+            ("cli_mappo_halfcheetah", CLI_MAPPO, 2, [], 2, False,
+             {"gae": 2, "discounted_returns": 0}),
+            ("cli_haa2c_halfcheetah", CLI_HAA2C, 2, [], 2, False,
+             {"gae": 2, "discounted_returns": 0}),
+            ("cli_haa2c_halfcheetah_returns", CLI_HAA2C, 1, ["--use_gae", "False"], 2, False,
+             {"gae": 0, "discounted_returns": 1}),
+            ("cli_hasac_halfcheetah", CLI_HASAC, 2, [], 6, True,
+             {"gae": 0, "discounted_returns": 0})):
+        cfg, extra = cli_args(config, shrink or {})
+        # iterations of T steps, or blocks of train_interval steps, of n envs
+        steps = iterations * cfg.get("episode_length", cfg.get("train_interval")) * \
+            cfg["n_rollout_threads"]
+        argv = ["--num_env_steps", str(steps), *argv]
+        zero_launches()
+        t0 = time.perf_counter()
+        run = train.main(["--load_config", config, "--use_eval", "False", *argv, *extra,
+                          "--log_dir", os.path.join(log_dir, label)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        recs = read_run(run, n_agents, off)
+        print(f"{label}: {config} {' '.join(argv + extra)} through train.main in {wall:.2f} s (last "
+              f"record: steps {recs[-1]['steps']}, fps {recs[-1]['fps']:.1f}); launches "
+              f"{launches} on {card}", flush=True)
+        by_path[label] = launches
+    haa2c = by_path.pop("cli_haa2c_halfcheetah_returns")
+    by_path["cli_haa2c_halfcheetah"] = {k: v + haa2c[k]
+                                        for k, v in by_path["cli_haa2c_halfcheetah"].items()}
+    return by_path
+
+
+def make_family_runner(algo: str, env: str, device, noise, **algo_updates):
+    """A small on-policy runner: 3m FP GRU or HalfCheetah 2x3."""
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, env_args = get_defaults_yaml_args(algo, env)
+    algo_args["train"].update(n_rollout_threads=8, episode_length=10, num_env_steps=10 ** 9)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    algo_args["algo"].update(**algo_updates)
+    if env == "smaclite":
+        algo_args["model"].update(use_recurrent_policy=True, data_chunk_length=5)
+        env_args.update(map_name="3m", state_type="FP", episode_limit=8)
+    else:
+        env_args.update(scenario="HalfCheetah-v2", agent_conf="2x3", episode_limit=5)
+    return OnPolicyRunner({"algo": algo, "env": env}, algo_args, env_args, device=device,
+                          noise=noise)
+
+
+def check_family_against_cpu(label: str, algo: str, env: str, devices=("cpu", "cuda"),
+                             **algo_updates) -> None:
+    """Phase 14: one small iteration on the card and on the CPU from the
+    same parameters and noise; HATRPO's accepted fractions are printed for
+    both devices."""
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    runs = []
+    for dev in devices:
+        noise = GeneratorNoise(torch.Generator().manual_seed(6), dev)
+        runner = make_family_runner(algo, env, dev, noise, **algo_updates)
+        state = runner.init_state(0)
+        if runs:   # the card's runner starts from the CPU runner's parameters
+            cpu_state = runs[0][0]
+            for a, b in zip(state.actors + [state.critic], cpu_state.actors + [cpu_state.critic]):
+                a.net.load_state_dict(b.net.state_dict())
+        runs.append((state, runner))
+    out = [runner.train_iteration(state) for state, runner in runs]
+    torch.cuda.synchronize()
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = out
+    fractions = (m_cpu.get("ls_fraction"), m_gpu.get("ls_fraction"))
+    if algo == "hatrpo":
+        print(f"{label}: accepted line-search fractions, CPU {fractions[0]}, card "
+              f"{fractions[1]}", flush=True)
+        if fractions[0] != fractions[1]:
+            raise AssertionError(f"{label}: the line search accepted other fractions on the "
+                                 f"card ({fractions[1]}) than on the CPU ({fractions[0]})")
+    close = lambda a, b: torch.testing.assert_close(
+        torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
+    for k in ("value_loss", "critic_grad_norm", "mean_step_reward", "episode_return_sum"):
+        close(m_gpu[k], m_cpu[k])
+    close(m_gpu["actor_stats"], m_cpu["actor_stats"])
+    for a, b in zip(s_gpu.actors + [s_gpu.critic], s_cpu.actors + [s_cpu.critic]):
+        for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
+            close(va, vb)
+    close(s_gpu.carry.obs, s_cpu.carry.obs)
+    log(f"small {label} iteration: card == CPU (rtol {E2E_RTOL}, atol {E2E_ATOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -850,11 +1199,22 @@ def main() -> int:
     check_smaclite_against_cpu()
     for algo in ("hasac", "hatd3"):
         check_off_policy_against_cpu(algo)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        cli_launches, cli_gae = drive_cli_hatrpo(card, os.path.join(log_dir, "hatrpo"), floor)
+        cli_paths = drive_cli_paths(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_family_against_cpu("hatrpo 3m FP GRU", "hatrpo", "smaclite", backtrack_coeff=0.5)
+    check_family_against_cpu("hatrpo halfcheetah 2x3", "hatrpo", "mamujoco_jax")
+    check_family_against_cpu("mappo share_param halfcheetah 2x3", "mappo", "mamujoco_jax",
+                             share_param=True, ppo_epoch=2)
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
     smac_profile()
-    by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches}
+    by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
+               "cli_hatrpo_smaclite": cli_launches, **cli_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -863,12 +1223,12 @@ def main() -> int:
         if name == "gae":
             if smac_launches["gae"] < 1:
                 raise AssertionError("gae was not launched on the SMACLite path")
-            extra = dict(smaclite_in_situ=smac_gae)
+            extra = dict(smaclite_in_situ=smac_gae, cli_hatrpo_in_situ=cli_gae)
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
             launches=sum(p[name] for p in by_path.values()),
             launches_by_path={path: p[name] for path, p in by_path.items()},
-            max_abs_err=max(errs[name], extra.get("smaclite_in_situ", {}).get("max_abs_err", 0.0)),
+            max_abs_err=max([errs[name]] + [v["max_abs_err"] for v in extra.values()]),
             ms=timing[name]["ms"],
             plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound_ms"],
             bound_by=timing[name]["bound_by"], library_ms=None,

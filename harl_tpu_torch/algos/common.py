@@ -4,7 +4,7 @@ updates, and how an update cuts its batch into minibatch rows."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -19,12 +19,19 @@ class ClippedAdam:
     it, where ``torch.nn.utils.clip_grad_norm_`` always scales by
     ``max/(norm + 1e-6)`` clamped to 1. optax's Adam and torch's agree,
     bias correction included.
+
+    With ``lr_schedule``, each step first sets every param group's ``lr`` to
+    ``lr_schedule(count)``, ``count`` the steps taken before this one: optax
+    evaluates a schedule on the same count.
     """
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float, eps: float = 1e-5,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None,
+                 lr_schedule: Optional[Callable[[int], float]] = None):
         self.params: List[nn.Parameter] = list(params)
         self.max_grad_norm = max_grad_norm
+        self.lr_schedule = lr_schedule
+        self.count = 0
         self.adam = torch.optim.Adam(self.params, lr=lr, eps=eps)
 
     def zero_grad(self) -> None:
@@ -38,8 +45,24 @@ class ClippedAdam:
         gnorm = global_grad_norm(grads)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, gnorm, self.max_grad_norm)
+        if self.lr_schedule is not None:
+            for group in self.adam.param_groups:
+                group["lr"] = self.lr_schedule(self.count)
         self.adam.step()
+        self.count += 1
         return gnorm
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Adam's moments and step counts; the lr stays the live config's,
+        as an optax state holds no lr."""
+        lrs = [g["lr"] for g in self.adam.param_groups]
+        self.adam.load_state_dict(sd["adam"])
+        for g, lr in zip(self.adam.param_groups, lrs):
+            g["lr"] = lr
+        self.count = int(sd["count"])
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], gnorm: torch.Tensor,
@@ -64,15 +87,32 @@ class AgentTrainState:
     opt: ClippedAdam
 
 
+def linear_lr_schedule(lr: float, total_updates: int,
+                       updates_per_iteration: int) -> Callable[[int], float]:
+    """The JAX package's linear decay (common.py:39-43, update_linear_schedule
+    of models_tools.py:77-87): lr·(1 − min(it / E, 1)) with it = count //
+    updates_per_iteration, stepped once per training iteration."""
+    def schedule(count: int) -> float:
+        it = count // max(updates_per_iteration, 1)
+        return lr * (1.0 - min(it / max(total_updates, 1), 1.0))
+
+    return schedule
+
+
 def make_optimizer(params, lr: float, opti_eps: float = 1e-5, weight_decay: float = 0.0,
                    max_grad_norm: Optional[float] = None,
-                   use_linear_lr_decay: bool = False) -> ClippedAdam:
-    """The JAX package's ``make_optimizer`` for its default settings."""
-    if weight_decay or use_linear_lr_decay:
+                   use_linear_lr_decay: bool = False, total_updates: int = 1,
+                   updates_per_iteration: int = 1) -> ClippedAdam:
+    """The JAX package's ``make_optimizer``: Adam after the optional clip,
+    with the optional linear lr decay over ``total_updates`` iterations of
+    ``updates_per_iteration`` optimizer steps each."""
+    if weight_decay:
         raise NotImplementedError(
-            "weight decay and linear lr decay are not ported yet "
-            "(ROADMAP.md, options of the ported modules)")
-    return ClippedAdam(params, lr, opti_eps, max_grad_norm)
+            "weight decay (optax.adamw) is not ported yet (ROADMAP.md, options of the "
+            "ported modules)")
+    schedule = (linear_lr_schedule(lr, total_updates, updates_per_iteration)
+                if use_linear_lr_decay else None)
+    return ClippedAdam(params, lr, opti_eps, max_grad_norm, schedule)
 
 
 def adam(params, lr: float) -> torch.optim.Adam:

@@ -1,4 +1,5 @@
-"""HAPPO actor update (counterpart of ``harl_tpu/algos/happo.py``).
+"""HAPPO, HAA2C and MAPPO actor updates (counterpart of
+``harl_tpu/algos/happo.py``).
 
 One ``update`` call is the reference ``HAPPO.train`` for one agent: EP
 advantage normalisation with the agent's active mask (happo.py:122-127; under
@@ -12,6 +13,10 @@ Minibatch rows: feed-forward, the T·B steps; recurrent, chunks of
 (T, B, ·) batch is cut per env into C = B·T/L chunks, each run through the GRU
 in sequence mode from the hidden state the rollout stored at its first step.
 The naive-recurrent path is the L = T case (whole env threads).
+
+HAA2C drops the clip and takes its epochs from ``a2c_epoch`` (haa2c.py:64-82);
+MAPPO is HAPPO's loss, and its runner passes an all-ones factor and skips
+the factor chain (mappo.py:64-80).
 """
 from __future__ import annotations
 
@@ -41,10 +46,13 @@ class HAPPOActor:
     """Binds the action space and config; the network and optimizer live in
     the ``AgentTrainState`` passed to ``update``."""
 
+    use_clip = True          # HAA2C: the unclipped surrogate
+    epoch_key = "ppo_epoch"  # HAA2C: "a2c_epoch"
+
     def __init__(self, action_space, cfg: dict):
         self.action_space = action_space
         self.clip_param = cfg.get("clip_param", 0.2)
-        self.ppo_epoch = cfg["ppo_epoch"]
+        self.ppo_epoch = cfg[self.epoch_key]
         self.num_mini_batch = cfg["actor_num_mini_batch"]
         self.entropy_coef = cfg["entropy_coef"]
         self.use_policy_active_masks = cfg.get("use_policy_active_masks", True)
@@ -109,11 +117,25 @@ class HAPPOActor:
         ev = act_evaluate(head, self.action_space, actions, avail, active,
                           self.std_x_coef, self.std_y_coef)
         ratio = aggregate_ratio(ev.log_probs - old_logp, self.action_aggregation)
-        surr1 = ratio * adv
-        surr2 = torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param) * adv
-        obj = (fac * torch.minimum(surr1, surr2)).sum(dim=-1, keepdim=True)
+        surr = ratio * adv
+        if self.use_clip:
+            surr = torch.minimum(
+                surr, torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param) * adv)
+        obj = (fac * surr).sum(dim=-1, keepdim=True)
         if self.use_policy_active_masks:
             policy_loss = -(obj * active).sum() / torch.clamp(active.sum(), min=1e-9)
         else:
             policy_loss = -obj.mean()
         return policy_loss, ev.entropy, ratio.mean()
+
+
+class HAA2CActor(HAPPOActor):
+    """HAA2C: the unclipped factor-weighted surrogate; epochs from ``a2c_epoch``."""
+
+    use_clip = False
+    epoch_key = "a2c_epoch"
+
+
+class MAPPOActor(HAPPOActor):
+    """MAPPO: HAPPO's loss; the runner passes an all-ones factor and skips the
+    factor chain (on_policy_ma_runner.py)."""

@@ -89,6 +89,10 @@ class HADDPGActor(_OffPolicyActor):
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return target(obs)
 
+    def deterministic_actions(self, net: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """π(obs) without exploration noise: the evaluation action."""
+        return net(obs)
+
 
 class HATD3Actor(HADDPGActor):
     """Adds clipped target-policy smoothing noise (hatd3.py:13-28)."""
@@ -129,3 +133,8 @@ class HASACActor(_OffPolicyActor):
 
     def get_actions(self, net: nn.Module, obs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         return self.get_actions_with_logprobs(net, obs, eps)[0]
+
+    def deterministic_actions(self, net: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """tanh(μ)·act_limit: the evaluation action (``stochastic=False``)."""
+        mu, log_std = net(obs)
+        return squashed_gaussian_sample(mu, log_std, None, self.act_limit, deterministic=True).action

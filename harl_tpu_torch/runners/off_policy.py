@@ -17,10 +17,15 @@ step, terms = env done ∧ ¬truncation, next obs and state at an episode end
 are the pre-reset ones (``Transition.final``), the EP reward is agent 0's,
 and the episode return adds the mean reward over agents.
 
+``run`` is the training loop around them: the warmup, then collect and
+train blocks, a log record (with an evaluation under ``use_eval``) every
+``eval_interval // train_interval`` blocks and a checkpoint every five such
+intervals, keeping the newest two (the state holds the replay buffer), and a
+resume from ``model_dir``.
+
 Ported: the EP state, Box actions, pure-tensor envs. FP states,
-``share_param``, HAD3QN, discrete actions, host envs and the training loop
-(``run``/``evaluate``, checkpoints, meshes) raise ``NotImplementedError``
-naming their roadmap item.
+``share_param``, HAD3QN, discrete actions, host envs and meshes raise
+``NotImplementedError`` naming their roadmap item.
 
 Randomness comes from one ``torch.Generator`` per runner on its device, and
 one on the host for the agent orders, both seeded by ``init_state(seed)``,
@@ -39,12 +44,16 @@ through a noise source (``utils/noise.py``). Its draws, in order:
                   its loss and for its action after its step.
 
 HADDPG draws nothing in an update but the indices and the permutation;
-MADDPG draws only the indices.
+MADDPG draws only the indices. Evaluation draws from a generator of its own,
+seeded from the run's seed and the round (``runners/common.py``): the eval
+envs' reset, then each step's reset draws.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, NamedTuple
+import math
+import time
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 
@@ -56,6 +65,8 @@ from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, QCriticState,
 from harl_tpu_torch.buffers.off_policy import FP_TODO, ReplayBuffer, Sample
 from harl_tpu_torch.envs import make_env
 from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.runners import common
+from harl_tpu_torch.utils import checkpoint
 from harl_tpu_torch.utils.device import DeviceLike, resolve_device
 from harl_tpu_torch.utils.noise import GeneratorNoise
 
@@ -96,6 +107,7 @@ class OffPolicyRunner:
     def __init__(self, args: dict, algo_args: dict, env_args: dict,
                  device: DeviceLike = None, noise=None):
         self.device = resolve_device(device)
+        self.args, self.algo_args, self.env_args = args, algo_args, env_args
         self.algo = args["algo"]
         if self.algo == "had3qn":
             raise NotImplementedError(f"had3qn (DuelingQNet, DiscreteQCritic) is not "
@@ -104,6 +116,7 @@ class OffPolicyRunner:
             raise NotImplementedError(f"off-policy algo {self.algo!r} is unknown")
         tr, al, md = algo_args["train"], algo_args["algo"], algo_args["model"]
         self.n_rollout_threads = tr["n_rollout_threads"]
+        self.num_env_steps = tr["num_env_steps"]
         self.warmup_steps = tr.get("warmup_steps", 10000)
         self.train_interval = tr.get("train_interval", 50)
         self.update_per_train = tr.get("update_per_train", 1)
@@ -150,6 +163,7 @@ class OffPolicyRunner:
         self.host_generator = torch.Generator()
         self.noise = noise if noise is not None else GeneratorNoise(
             self.generator, self.device, self.host_generator)
+        self.seed = 0
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int) -> OffPolicyState:
@@ -374,10 +388,109 @@ class OffPolicyRunner:
             logp_sum = torch.cat(logps, dim=-1).sum(dim=-1, keepdim=True)
             self.critic.update_alpha(state.critic, logp_sum, float(sum(self.target_entropy)))
 
-    # ---------------------------------------------------------- not ported
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the off-policy training loop (run, evaluate, eval_rollout, checkpoints, "
-            "meshes) is not ported yet (ROADMAP.md, tooling)")
+    # ------------------------------------------------------------------ eval
+    def eval_noise(self, round_idx: int):
+        """The noise source of evaluation round ``round_idx``."""
+        return common.derived_noise(self.seed, common.OFF_POLICY_EVAL_SALT, round_idx,
+                                    self.device)
 
-    evaluate = eval_rollout = run
+    def eval_rollout(self, state: OffPolicyState, n_eval_envs: int, round_idx: int = 0):
+        """The deterministic actors over one env horizon of ``n_eval_envs``
+        auto-reset envs (off_policy.py:725-780); returns the sums (episode
+        return, episodes ended, {metric: sum}) as tensors."""
+        def act(obs, avail, masks, rnn):
+            return common.stack_actions([
+                actor.deterministic_actions(state.actors[i].net, self._obs_i(obs, i))
+                for i, actor in enumerate(self.actors)]), None
+
+        return common.eval_rollout(self.env, n_eval_envs, self._eval_len(),
+                                   self.eval_noise(round_idx), act)
+
+    def evaluate(self, state: OffPolicyState, n_eval: int, eval_episodes: int):
+        """Rounds of ``eval_rollout`` until ``eval_episodes`` episodes ended;
+        returns (mean return, metrics)."""
+        return common.evaluate_rounds(lambda r: self.eval_rollout(state, n_eval, r),
+                                      n_eval, eval_episodes)
+
+    def _eval_len(self) -> int:
+        return common.eval_len(self.env, 1000)
+
+    # ----------------------------------------------------------- checkpoint
+    def checkpoint(self, state: OffPolicyState) -> dict:
+        """The full train state as a plain payload (``utils/checkpoint.py``):
+        networks, targets, optimizers, α, the critic's ValueNorm, the replay
+        buffer's tensors with its host ``idx``/``cur_size``, the rollout
+        carry, the update count and both generators' states."""
+        return {"state": checkpoint.to_payload(state),
+                "generator": self.generator.get_state(),
+                "host_generator": self.host_generator.get_state(), "seed": self.seed}
+
+    def load_checkpoint(self, state: OffPolicyState, payload: dict) -> OffPolicyState:
+        state = checkpoint.load_payload(state, payload["state"])
+        self.generator.set_state(payload["generator"].cpu())
+        self.host_generator.set_state(payload["host_generator"].cpu())
+        self.seed = int(payload["seed"])
+        return state
+
+    def restore(self, state: OffPolicyState, model_dir: str) -> OffPolicyState:
+        """Resume the full state from the latest checkpoint under ``model_dir``."""
+        path = checkpoint.latest_checkpoint(model_dir) or model_dir
+        print(f"restoring train state from {path}")
+        return self.load_checkpoint(state, checkpoint.restore_state(path, self.device))
+
+    # ------------------------------------------------------------------- run
+    def run(self, seed: int = 1, logger=None, save_dir: Optional[str] = None, log_fn=None,
+            mesh=None):
+        """The training loop (off_policy.py:951-1035): the warmup, then
+        ``num_env_steps // n_rollout_threads // train_interval`` collect and
+        train blocks. Episode counts accumulate across blocks; every
+        ``eval_interval // train_interval`` blocks and at the last, a log
+        record (and an evaluation under ``use_eval``); every five such
+        intervals and at the last, a checkpoint, keeping the newest two.
+        Returns (state, the log records)."""
+        if mesh is not None:
+            raise NotImplementedError(common.MESH_TODO)
+        state = self.init_state(seed)
+        tr, ev = self.algo_args["train"], self.algo_args.get("eval", {}) or {}
+        if tr.get("model_dir"):
+            state = self.restore(state, tr["model_dir"])
+        state = self.warmup_block(state)
+        total_blocks = max(int(self.num_env_steps) // self.n_rollout_threads
+                           // self.train_interval, 1)
+        blocks_per_eval = max(tr.get("eval_interval", 10000) // self.train_interval, 1)
+        use_eval = ev.get("use_eval", False)
+        n_eval = ev.get("n_eval_rollout_threads", 10)
+        history: List[dict] = []
+        t_start = time.time()
+        last_return = math.nan
+        acc_ret = acc_cnt = 0.0
+        for block in range(1, total_blocks + 1):
+            state, cm = self.collect_block(state)
+            state, tm = self.train_block(state)
+            acc_ret += float(cm["episode_return_sum"])
+            acc_cnt += float(cm["episode_count"])
+            if block % blocks_per_eval == 0 or block == total_blocks:
+                if acc_cnt > 0:
+                    last_return = acc_ret / acc_cnt
+                    acc_ret = acc_cnt = 0.0
+                steps = self.warmup_steps + block * self.train_interval * self.n_rollout_threads
+                rec = dict(steps=steps, mean_episode_return=last_return,
+                           critic_loss=float(tm["critic_loss"]),
+                           fps=block * self.train_interval * self.n_rollout_threads
+                           / (time.time() - t_start))
+                if use_eval:
+                    eval_ret, extra = self.evaluate(state, n_eval,
+                                                    ev.get("eval_episodes", n_eval))
+                    rec["eval_return"] = eval_ret
+                    for k, v in extra.items():
+                        rec["eval_win_rate" if k == "won" else f"eval_{k}"] = v
+                history.append(rec)
+                if logger is not None:
+                    logger.log_episode(rec)
+                if log_fn:
+                    log_fn(rec)
+                if save_dir is not None and (block % (blocks_per_eval * 5) == 0
+                                             or block == total_blocks):
+                    checkpoint.save_state(save_dir, self.checkpoint(state), steps)
+                    checkpoint.prune_checkpoints(save_dir, keep=2)
+        return state, history

@@ -1,4 +1,5 @@
-"""On-policy HARL runner (counterpart of ``harl_tpu/runners/on_policy.py``).
+"""On-policy HARL runner (counterpart of ``harl_tpu/runners/on_policy.py``):
+HAPPO, HATRPO, HAA2C and MAPPO (``algos.ON_POLICY_REGISTRY``).
 
 One ``train_iteration`` is, in order:
 
@@ -8,15 +9,24 @@ One ``train_iteration`` is, in order:
              the CUDA kernels of ``ops/gae_kernels.py`` on a CUDA device;
   update   — the HARL sequential update over agents, in fixed or random
              order, with the factor carried from agent to agent
-             (on_policy_ha_runner.py:47-124);
+             (on_policy_ha_runner.py:47-124) where the algorithm chains it
+             (not MAPPO); MAPPO with ``share_param`` updates once on the
+             agents' batches merged along the env axis (mappo.py:189-227);
   critic   — VCritic epochs with ValueNorm.
+
+``run`` is the training loop around it: logging every ``log_interval``
+iterations, evaluation and a checkpoint every ``eval_interval``, an optional
+``torch.profiler`` trace of iterations 2–4 (``profile_trace_dir``), and a
+resume from ``model_dir``. ``evaluate`` and ``render`` run the deterministic
+policy on fresh envs.
 
 Ported paths: EP and FP centralized states, MLP or GRU networks (chunked
 or naive recurrent updates), Box and Discrete actions with availability
-masks, pure-tensor envs. Under FP the critic runs per (env, agent) row, the
-rewards, masks and returns are per agent (T, B, N, 1), and the advantages
-are normalised once across agents. share_param, the other algorithms and
-host envs are on the roadmap.
+masks, ``share_param`` (one network and optimizer for every agent), linear
+lr decay, pure-tensor envs. Under FP the critic runs per (env, agent) row,
+the rewards, masks and returns are per agent (T, B, N, 1), and the
+advantages are normalised once across agents. Host envs and meshes are on
+the roadmap.
 
 Mask bookkeeping (on_policy_base_runner.py:342-460):
   masks[t+1]        = 0 where env done at step t (all agents done)
@@ -26,18 +36,37 @@ Mask bookkeeping (on_policy_base_runner.py:342-460):
 
 Randomness comes from one ``torch.Generator`` per runner, seeded by
 ``init_state(seed)``, through a noise source (``utils/noise.py``); a caller
-may pass its own noise source instead.
+may pass its own noise source instead. Its draws, in order:
+
+  init_state   the env reset, then (from the generator itself) the actors'
+               and the critic's initial weights;
+  rollout step per agent, ``action_noise`` (Box) or ``gumbel_noise``
+               (Discrete) of its head's shape, then the env step's reset draws;
+  update       the agent permutation (random order with N > 1, not MAPPO
+               with ``share_param``); with several minibatches, each agent's
+               per-epoch shuffles in update order (MAPPO with ``share_param``:
+               one update's shuffles over the merged T·B·N rows, or chunks);
+               then the critic's per-epoch shuffles.
+
+Evaluation and rendering draw from generators of their own, seeded from the
+run's seed and the round (``runners/common.py``), so a run with evaluation
+trains exactly as a run without it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from harl_tpu_torch.algos import ON_POLICY_REGISTRY
 from harl_tpu_torch.algos.common import AgentTrainState, aggregate_ratio, make_optimizer
 from harl_tpu_torch.algos.critics import CriticBatch, VCritic
-from harl_tpu_torch.algos.happo import ActorBatch, HAPPOActor
+from harl_tpu_torch.algos.happo import ActorBatch
+from harl_tpu_torch.algos.hatrpo import HATRPOActor
 from harl_tpu_torch.envs import make_env
 from harl_tpu_torch.envs.core import VecEnv
 from harl_tpu_torch.models.act import act_sample
@@ -46,9 +75,11 @@ from harl_tpu_torch.models.values import VNet
 from harl_tpu_torch.ops.returns import (compute_discounted_returns, compute_gae,
                                         normalize_advantages_masked)
 from harl_tpu_torch.ops.value_norm import ValueNormState, denormalize, init_value_norm
-from harl_tpu_torch.utils import spaces
+from harl_tpu_torch.runners import common
+from harl_tpu_torch.utils import checkpoint, spaces
 from harl_tpu_torch.utils.device import DeviceLike, resolve_device
 from harl_tpu_torch.utils.noise import GeneratorNoise
+from harl_tpu_torch.utils.profiling import start_trace, stop_trace
 
 # per-agent step data: lists over agents, each stacked over time
 PER_AGENT_KEYS = ("actions", "logp", "actor_rnn")
@@ -68,7 +99,7 @@ class RolloutCarry(NamedTuple):
 
 @dataclasses.dataclass
 class TrainState:
-    actors: List[AgentTrainState]
+    actors: List[AgentTrainState]    # one per agent; a single one under share_param
     critic: AgentTrainState
     value_norm: Optional[ValueNormState]
     carry: RolloutCarry
@@ -80,20 +111,26 @@ def _space_n(space) -> int:
 
 
 class OnPolicyRunner:
-    """HAPPO runner. ``args``: {"algo", "env", …}; ``algo_args``: the YAML
-    sections (train/model/algo); ``env_args``: env kwargs. ``device`` is
-    CUDA unless given; ``noise`` replaces the generator-backed noise source."""
+    """HAPPO, HATRPO, HAA2C and MAPPO runner. ``args``: {"algo", "env", …};
+    ``algo_args``: the YAML sections (train/model/algo/eval); ``env_args``:
+    env kwargs. ``device`` is CUDA unless given; ``noise`` replaces the
+    generator-backed noise source."""
 
     def __init__(self, args: dict, algo_args: dict, env_args: dict,
                  device: DeviceLike = None, noise=None):
         self.device = resolve_device(device)
-        if args.get("algo", "happo") != "happo":
-            raise NotImplementedError(
-                f"algo {args.get('algo')!r} is not ported yet (ROADMAP.md, HATRPO, "
-                "HAA2C, MAPPO)")
+        self.args, self.algo_args, self.env_args = args, algo_args, env_args
+        algo = args.get("algo", "happo")
+        if algo not in ON_POLICY_REGISTRY:
+            raise ValueError(f"{algo!r} is not an on-policy algorithm "
+                             f"({sorted(ON_POLICY_REGISTRY)})")
+        actor_cls, self.factor_chain = ON_POLICY_REGISTRY[algo]
         tr, al, md = algo_args["train"], algo_args["algo"], algo_args["model"]
         self.episode_length = tr["episode_length"]
         self.n_rollout_threads = tr["n_rollout_threads"]
+        self.num_env_steps = tr["num_env_steps"]
+        self.episodes = max(int(self.num_env_steps) // self.episode_length
+                            // self.n_rollout_threads, 1)
         self.use_valuenorm = tr.get("use_valuenorm", True)
         self.use_proper_time_limits = tr.get("use_proper_time_limits", True)
         self.use_gae = al.get("use_gae", True)
@@ -101,10 +138,7 @@ class OnPolicyRunner:
         self.gae_lambda = al.get("gae_lambda", 0.95)
         self.fixed_order = al.get("fixed_order", False)
         self.action_aggregation = al.get("action_aggregation", "prod")
-        if al.get("share_param", False):
-            raise NotImplementedError(
-                "share_param is not ported yet (ROADMAP.md, options of the ported "
-                "modules)")
+        self.share_param = al.get("share_param", False)
         self.md = md
         self.hidden_sizes = tuple(md["hidden_sizes"])
         self.recurrent_n = md.get("recurrent_n", 1)
@@ -113,6 +147,9 @@ class OnPolicyRunner:
         self.max_grad_norm = (al.get("max_grad_norm", 10.0)
                               if al.get("use_max_grad_norm", True) else None)
         self.use_linear_lr_decay = tr.get("use_linear_lr_decay", False)
+        # optimizer steps an iteration, for the lr decay (on_policy.py:153-156)
+        self.actor_updates = al.get(actor_cls.epoch_key, 1) * al.get("actor_num_mini_batch", 1)
+        self.critic_updates = al["critic_epoch"] * al["critic_num_mini_batch"]
 
         env = make_env(args["env"], env_args, self.device)
         self.env = env
@@ -127,10 +164,22 @@ class OnPolicyRunner:
                 f"{args['env']} has no FP state (ROADMAP.md, remaining pure-JAX envs)")
 
         algo_cfg = {**al, **md}
-        self.actors = [HAPPOActor(self.act_spaces[i], algo_cfg) for i in range(self.n_agents)]
+        if self.share_param:
+            # homogeneity check (on_policy_base_runner.py:107-113)
+            if not (all(d == self.obs_dims[0] for d in self.obs_dims)
+                    and all(sp == self.act_spaces[0] for sp in self.act_spaces)):
+                raise ValueError("share_param requires homogeneous agents")
+            self.actors = [actor_cls(self.act_spaces[0], algo_cfg)] * self.n_agents
+        else:
+            self.actors = [actor_cls(self.act_spaces[i], algo_cfg) for i in range(self.n_agents)]
         self.critic = VCritic(algo_cfg)
         self.generator = torch.Generator(device=self.device)
         self.noise = noise if noise is not None else GeneratorNoise(self.generator, self.device)
+        self.seed = 0
+
+    def _sidx(self, i: int) -> int:
+        """Agent i's entry of ``TrainState.actors``."""
+        return 0 if self.share_param else i
 
     # ------------------------------------------------------------------ init
     def _model_kwargs(self) -> dict:
@@ -146,28 +195,32 @@ class OnPolicyRunner:
             generator=self.generator,
         )
 
-    def _optimizer(self, net, lr: float):
+    def _optimizer(self, net, lr: float, updates_per_iteration: int):
         return make_optimizer(net.parameters(), lr, self.md.get("opti_eps", 1e-5),
                               self.md.get("weight_decay", 0.0), self.max_grad_norm,
-                              self.use_linear_lr_decay)
+                              self.use_linear_lr_decay, self.episodes, updates_per_iteration)
 
     @property
     def fp(self) -> bool:
         return self.state_type == "FP"
 
     def init_state(self, seed: int) -> TrainState:
-        """Seed the runner's generator, reset the envs, build fresh networks."""
+        """Seed the runner's generator, reset the envs, build fresh networks
+        (one policy for every agent under ``share_param``)."""
+        self.seed = seed
         self.generator.manual_seed(seed)
         env_state, ts = self.vec.reset(self.noise)
         md = self.md
         actors = []
-        for i in range(self.n_agents):
+        for i in range(1 if self.share_param else self.n_agents):
             policy = StochasticPolicy(
                 self.obs_dims[i], self.act_spaces[i], gain=md.get("gain", 0.01),
                 std_x_coef=md.get("std_x_coef", 1.0), **self._model_kwargs())
-            actors.append(AgentTrainState(policy, self._optimizer(policy, md["lr"])))
+            actors.append(AgentTrainState(policy, self._optimizer(policy, md["lr"],
+                                                                  self.actor_updates)))
         vnet = VNet(self.share_obs_dim, **self._model_kwargs())
-        critic = AgentTrainState(vnet, self._optimizer(vnet, md["critic_lr"]))
+        critic = AgentTrainState(vnet, self._optimizer(vnet, md["critic_lr"],
+                                                       self.critic_updates))
         B, N, H = self.n_rollout_threads, self.n_agents, self.hidden_sizes[-1]
         ones = torch.ones((B, N, 1), device=self.device)
 
@@ -194,11 +247,12 @@ class OnPolicyRunner:
             space = self.act_spaces[i]
             obs_i = carry.obs[:, i, : self.obs_dims[i]]
             avail_i = None if carry.avail is None else carry.avail[:, i, : _space_n(space)]
+            net = actors[self._sidx(i)].net
             if self.use_rnn:
-                head, h = actors[i].net(obs_i, carry.actor_rnn[i], carry.masks[:, i])
+                head, h = net(obs_i, carry.actor_rnn[i], carry.masks[:, i])
                 new_rnn.append(h)
             else:
-                head, _ = actors[i].net(obs_i)
+                head, _ = net(obs_i)
             if spaces.space_kind(space) == "Discrete":
                 noise = self.noise.gumbel_noise(head[0].shape)
             else:
@@ -207,10 +261,7 @@ class OnPolicyRunner:
                              std_x_coef=actor.std_x_coef, std_y_coef=actor.std_y_coef)
             acts.append(out.actions)
             logps.append(out.log_probs)
-        max_da = max(a.shape[-1] for a in acts)
-        stacked = torch.stack(
-            [torch.nn.functional.pad(a, (0, max_da - a.shape[-1])) for a in acts], dim=1)
-        return stacked, acts, logps, new_rnn if self.use_rnn else None
+        return common.stack_actions(acts), acts, logps, new_rnn if self.use_rnn else None
 
     def _values(self, critic_net, share_obs, critic_rnn, masks):
         """V of the centralized state: EP (B, 1); FP (B, N, 1) from B·N rows.
@@ -355,7 +406,10 @@ class OnPolicyRunner:
                        else avail[:, :, i, : _space_n(self.act_spaces[i])])
             for i in range(N)
         ]
-        actor_stats = self._sequential_update(state, batches, advantages, T, B)
+        if self.share_param and not self.factor_chain:
+            actor_stats = self._merged_update(state, batches, advantages, T, B)
+        else:
+            actor_stats, fractions = self._sequential_update(state, batches, advantages, T, B)
         if self.fp:
             critic_batch = CriticBatch(
                 share_obs=data["share_obs"].reshape(T, B * N, -1),
@@ -371,7 +425,7 @@ class OnPolicyRunner:
         state.value_norm, critic_stats = self.critic.update(
             state.critic, state.value_norm, critic_batch,
             self._perms(self.critic.critic_epoch, self.critic.num_mini_batch, rows))
-        return dict(
+        metrics = dict(
             actor_stats=actor_stats,   # (N, [policy_loss, entropy, grad_norm, ratio])
             value_loss=critic_stats[0],
             critic_grad_norm=critic_stats[1],
@@ -381,6 +435,11 @@ class OnPolicyRunner:
             episode_count=data["emitted_cnt"].sum(),
             episode_metric_sums={k: v.sum() for k, v in data["emitted_metrics"].items()},
         )
+        if isinstance(self.actors[0], HATRPOActor):
+            # HATRPO's stats are [improvement, entropy, kl, ratio]; the
+            # accepted line-search fractions, per agent, were read on the host
+            metrics["ls_fraction"] = fractions
+        return metrics
 
     def _perms(self, epochs: int, num_mini_batch: int, M: int) -> Optional[torch.Tensor]:
         """Per-epoch shuffles for a multi-minibatch update, else None."""
@@ -389,26 +448,235 @@ class OnPolicyRunner:
         return torch.stack([self.noise.permutation(M) for _ in range(epochs)])
 
     def _sequential_update(self, state: TrainState, batches: List[ActorBatch],
-                           advantages: torch.Tensor, T: int, B: int) -> torch.Tensor:
-        """The HARL sequential update with the factor carried from agent to
-        agent (on_policy_ha_runner.py:47-124)."""
+                           advantages: torch.Tensor, T: int, B: int):
+        """The HARL sequential update, with the factor carried from agent to
+        agent where the algorithm chains it (on_policy_ha_runner.py:47-124).
+        Returns (stats (N, 4), per-agent accepted line-search fractions:
+        HATRPO's, else zeros)."""
         N = self.n_agents
         factor = torch.ones((T, B, 1), device=self.device)
         stats = torch.zeros((N, 4), device=self.device)
+        fractions = [0.0] * N
         if self.fixed_order or N == 1:
             order = list(range(N))
         else:
             order = self.noise.permutation(N).tolist()
         for i in order:
-            actor, st, batch = self.actors[i], state.actors[i], batches[i]
-            # pre-update params are the rollout params, so the stored
-            # behavior log-probs are the old log-probs
-            old_logp = batch.logp.reshape((-1,) + tuple(batch.logp.shape[2:]))
+            actor, st, batch = self.actors[i], state.actors[self._sidx(i)], batches[i]
+            if self.factor_chain:
+                if self.share_param:
+                    # earlier agents of the order moved the shared parameters
+                    # already (on_policy_ha_runner.py:66-83)
+                    old_logp = actor.evaluate_logp(st.net, batch)
+                else:
+                    # pre-update params are the rollout params, so the stored
+                    # behavior log-probs are the old log-probs
+                    old_logp = batch.logp.reshape((-1,) + tuple(batch.logp.shape[2:]))
             stats[i] = actor.update(
                 st, batch, advantages[:, :, i] if self.fp else advantages, factor,
                 self._perms(actor.ppo_epoch, actor.num_mini_batch, actor.chunking.rows(T, B)),
                 state_type=self.state_type)
-            new_logp = actor.evaluate_logp(st.net, batch)
-            factor = factor * aggregate_ratio(
-                new_logp - old_logp, self.action_aggregation).reshape(T, B, 1)
-        return stats
+            fractions[i] = getattr(actor, "last_fraction", 0.0)
+            if self.factor_chain:
+                new_logp = actor.evaluate_logp(st.net, batch)
+                factor = factor * aggregate_ratio(
+                    new_logp - old_logp, self.action_aggregation).reshape(T, B, 1)
+        return stats, fractions
+
+    def _merged_update(self, state: TrainState, batches: List[ActorBatch],
+                       advantages: torch.Tensor, T: int, B: int):
+        """MAPPO with ``share_param``: one update on the agents' batches
+        concatenated along the env axis, all-ones factor (mappo.py:189-227).
+        Under EP every agent sees the team advantages, under FP its own."""
+        N, actor = self.n_agents, self.actors[0]
+
+        def cat(name):
+            parts = [getattr(b, name) for b in batches]
+            return None if parts[0] is None else torch.cat(parts, dim=1)
+
+        merged = ActorBatch(**{name: cat(name) for name in ActorBatch._fields})
+        adv = (torch.cat([advantages[:, :, i] for i in range(N)], dim=1) if self.fp
+               else advantages.repeat(1, N, 1))
+        stats = actor.update(
+            state.actors[0], merged, adv, torch.ones((T, B * N, 1), device=self.device),
+            self._perms(actor.ppo_epoch, actor.num_mini_batch, actor.chunking.rows(T, B * N)),
+            state_type=self.state_type)
+        return stats[None].expand(N, 4)
+
+    # ------------------------------------------------------------------ eval
+    def _deterministic_actions(self, state: TrainState, obs, avail, masks, rnn):
+        """Every agent's mode action (stacked) and new hidden states."""
+        acts, new_rnn = [], []
+        for i, actor in enumerate(self.actors):
+            net = state.actors[self._sidx(i)].net
+            obs_i = obs[:, i, : self.obs_dims[i]]
+            avail_i = None if avail is None else avail[:, i, : _space_n(self.act_spaces[i])]
+            if rnn is not None:
+                head, h = net(obs_i, rnn[i], masks[:, None])
+                new_rnn.append(h)
+            else:
+                head, _ = net(obs_i)
+            acts.append(act_sample(None, head, self.act_spaces[i], avail_i, deterministic=True,
+                                   std_x_coef=actor.std_x_coef,
+                                   std_y_coef=actor.std_y_coef).actions)
+        return common.stack_actions(acts), (new_rnn if rnn is not None else None)
+
+    def eval_noise(self, round_idx: int):
+        """The noise source of evaluation round ``round_idx``."""
+        return common.derived_noise(self.seed, common.ON_POLICY_EVAL_SALT, round_idx, self.device)
+
+    def eval_rollout(self, state: TrainState, n_eval_envs: int, round_idx: int = 0):
+        """The deterministic policy over one env horizon of ``n_eval_envs``
+        auto-reset envs (on_policy.py:792-866); returns the sums (episode
+        return, episodes ended, {metric: sum}) as tensors."""
+        H = self.hidden_sizes[-1]
+        rnn0 = ([torch.zeros((n_eval_envs, self.recurrent_n, H), device=self.device)
+                 for _ in range(self.n_agents)] if self.use_rnn else None)
+        return common.eval_rollout(
+            self.env, n_eval_envs, self._eval_len(), self.eval_noise(round_idx),
+            lambda obs, avail, masks, rnn: self._deterministic_actions(state, obs, avail,
+                                                                        masks, rnn), rnn0)
+
+    def evaluate(self, state: TrainState, n_eval: int, eval_episodes: int):
+        """Rounds of ``eval_rollout`` until ``eval_episodes`` episodes ended
+        (on_policy_base_runner.py:587-591); returns (mean return, metrics)."""
+        return common.evaluate_rounds(lambda r: self.eval_rollout(state, n_eval, r),
+                                      n_eval, eval_episodes)
+
+    def _eval_len(self) -> int:
+        return common.eval_len(self.env, self.episode_length)
+
+    @torch.no_grad()
+    def render(self, state: TrainState, episodes: int = 10, save_path: Optional[str] = None):
+        """Deterministic rollouts of ``episodes`` envs over one env horizon,
+        saved as ``.npz`` trajectories (obs, actions, rewards) for offline
+        viewing (on_policy.py:947-992); returns each env's reward sum. As in
+        the JAX package, a recurrent policy acts from zero hidden states."""
+        noise = common.derived_noise(self.seed, common.RENDER_SALT, 0, self.device)
+        vec = VecEnv(self.env, episodes)
+        env_state, ts = vec.reset(noise)
+        obs, avail = ts.obs, ts.available_actions
+        obs_traj, act_traj, rew_traj = [], [], []
+        for _ in range(self._eval_len()):
+            stacked, _ = self._deterministic_actions(state, obs, avail, None, None)
+            tr = vec.step(env_state, stacked, noise)
+            env_state, obs, avail = tr.state, tr.ts.obs, tr.ts.available_actions
+            obs_traj.append(obs)
+            act_traj.append(stacked)
+            rew_traj.append(tr.ts.rewards[:, :, 0].mean(dim=1))
+        rewards = torch.stack(rew_traj).cpu().numpy()
+        if save_path:
+            np.savez(save_path, obs=torch.stack(obs_traj).cpu().numpy(),
+                     actions=torch.stack(act_traj).cpu().numpy(), rewards=rewards)
+            print(f"saved render trajectories to {save_path}")
+        return [float(r) for r in rewards.sum(axis=0)]
+
+    # ----------------------------------------------------------- checkpoint
+    def checkpoint(self, state: TrainState) -> dict:
+        """The full train state as a plain payload (``utils/checkpoint.py``):
+        networks, optimizers, ValueNorm, the rollout carry with the env
+        state's tensors, and the generator's state."""
+        return {"state": checkpoint.to_payload(state),
+                "generator": self.generator.get_state(), "seed": self.seed}
+
+    def load_checkpoint(self, state: TrainState, payload: dict) -> TrainState:
+        """Load a payload of ``checkpoint`` into ``state``; raises
+        ``ValueError`` (and changes nothing) where its structure differs."""
+        state = checkpoint.load_payload(state, payload["state"])
+        self.generator.set_state(payload["generator"].cpu())
+        self.seed = int(payload["seed"])
+        return state
+
+    def restore(self, state: TrainState, model_dir: str) -> TrainState:
+        """Resume from the latest checkpoint under ``model_dir``: the full
+        state, or, where its structure differs from the live run's (another
+        env batch, another optimizer), the networks and ValueNorm only
+        (on_policy.py:994-1019)."""
+        path = checkpoint.latest_checkpoint(model_dir) or model_dir
+        print(f"restoring train state from {path}")
+        try:
+            return self.load_checkpoint(state, checkpoint.restore_state(path, self.device))
+        except ValueError as e:
+            print(f"full-state resume structure mismatch ({e}); falling back to a "
+                  "params-only restore (networks and ValueNorm, fresh optimizers)")
+            return checkpoint.restore_params_into(path, state, self.device)
+
+    # ------------------------------------------------------------------- run
+    def run(self, seed: int = 1, log_fn=None, logger=None, save_dir: Optional[str] = None,
+            mesh=None):
+        """The training loop (on_policy_base_runner.py:171-267): ``episodes``
+        iterations; a log record every ``log_interval`` iterations and at the
+        last; every ``eval_interval`` and at the last, an evaluation (with
+        ``use_eval``) and a checkpoint (whether or not eval is on). Returns
+        (state, the log records)."""
+        if mesh is not None:
+            raise NotImplementedError(common.MESH_TODO)
+        state = self.init_state(seed)
+        tr, ev = self.algo_args["train"], self.algo_args.get("eval", {}) or {}
+        if tr.get("model_dir"):
+            state = self.restore(state, tr["model_dir"])
+        steps_per_iter = self.episode_length * self.n_rollout_threads
+        log_interval = tr.get("log_interval", 5)
+        eval_interval = tr.get("eval_interval", 25)
+        use_eval = ev.get("use_eval", False)
+        n_eval = ev.get("n_eval_rollout_threads", 10)
+        profile_dir, trace = tr.get("profile_trace_dir"), None
+        history: List[dict] = []
+        t_start = time.time()
+        last_return = math.nan
+        try:
+            for episode in range(1, self.episodes + 1):
+                if profile_dir and episode == 2:
+                    trace = start_trace(profile_dir, self.device)
+                state, metrics = self.train_iteration(state)
+                if trace is not None and episode == 4:
+                    _sync(self.device)
+                    stop_trace(trace)
+                    trace = None
+                if episode % log_interval == 0 or episode == self.episodes:
+                    count = float(metrics["episode_count"])
+                    if count > 0:   # keep the last value when no episode ended
+                        last_return = float(metrics["episode_return_sum"]) / count
+                    astats = metrics["actor_stats"].tolist()
+                    rec = dict(
+                        episode=episode, steps=episode * steps_per_iter,
+                        mean_episode_return=last_return,
+                        value_loss=float(metrics["value_loss"]),
+                        critic_grad_norm=float(metrics["critic_grad_norm"]),
+                        dead_ratio=float(metrics["dead_ratio"]),
+                        fps=episode * steps_per_iter / (time.time() - t_start),
+                        agent_stats=[dict(policy_loss=a[0], dist_entropy=a[1],
+                                          actor_grad_norm=a[2], ratio=a[3]) for a in astats])
+                    if count > 0:
+                        # the env-logger family (SMAC win rate, …)
+                        for k, v in metrics["episode_metric_sums"].items():
+                            rec["win_rate" if k == "won" else k] = float(v) / count
+                    history.append(rec)
+                    if logger is not None:
+                        logger.log_episode(rec)
+                    if log_fn:
+                        log_fn(rec)
+                if episode % eval_interval == 0 or episode == self.episodes:
+                    if use_eval:
+                        eval_ret, extra = self.evaluate(state, n_eval,
+                                                        ev.get("eval_episodes", n_eval))
+                        if logger is not None:
+                            logger.log_eval(episode * steps_per_iter, eval_ret, extra)
+                        if history:
+                            history[-1]["eval_return"] = eval_ret
+                            for k, v in extra.items():
+                                history[-1]["eval_win_rate" if k == "won" else f"eval_{k}"] = v
+                    # saved every eval_interval whether or not eval is on
+                    # (on_policy_base_runner.py:260-265)
+                    if save_dir is not None:
+                        checkpoint.save_state(save_dir, self.checkpoint(state),
+                                              episode * steps_per_iter)
+        finally:
+            if trace is not None:
+                stop_trace(trace)
+        return state, history
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

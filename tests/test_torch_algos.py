@@ -1,5 +1,5 @@
-"""Port parity: the HAPPO actor update, the V critic update and the
-optimizer's gradient clip.
+"""Port parity: the HAPPO, HAA2C and MAPPO actor updates, the V critic
+update, the optimizer's gradient clip and its linear lr decay.
 
 Both sides start from the same parameters (flax → ``convert``), see the
 same batch and, with several minibatches, the same per-epoch permutations
@@ -16,6 +16,7 @@ import torch
 from harl_tpu.algos import common as jcommon
 from harl_tpu.algos.critics import CriticBatch as JCriticBatch
 from harl_tpu.algos.critics import VCritic as JVCritic
+from harl_tpu.algos import happo as jhappo
 from harl_tpu.algos.happo import ActorBatch as JActorBatch
 from harl_tpu.algos.happo import HAPPOActor as JActor
 from harl_tpu.models.policies import StochasticPolicy as JPolicy
@@ -24,6 +25,7 @@ from harl_tpu.ops import value_norm as jvn
 from harl_tpu.utils import spaces as jspaces
 from harl_tpu_torch.algos import common as tcommon
 from harl_tpu_torch.algos.critics import CriticBatch, VCritic
+from harl_tpu_torch.algos import happo as thappo
 from harl_tpu_torch.algos.happo import ActorBatch, HAPPOActor
 from harl_tpu_torch.models.policies import StochasticPolicy
 from harl_tpu_torch.models.values import VNet
@@ -65,7 +67,10 @@ def _jax_perms(key, epochs, M):
         jax.random.split(key, epochs)))
 
 
-def _actor_case(num_mini_batch, seed=0):
+ACTOR_CLASSES = {"happo": "HAPPOActor", "haa2c": "HAA2CActor", "mappo": "MAPPOActor"}
+
+
+def _actor_case(num_mini_batch, seed=0, algo="happo"):
     rng = np.random.default_rng(seed)
     f = np.float32
     space = jspaces.Box.create(-1.0, 1.0, ACT_DIM)
@@ -84,8 +89,10 @@ def _actor_case(num_mini_batch, seed=0):
     adv = rng.normal(0.5, 2.0, size=(T, B, 1)).astype(f)
     factor = rng.uniform(0.5, 1.5, size=(T, B, 1)).astype(f)
     cfg = dict(CFG, actor_num_mini_batch=num_mini_batch)
+    if algo == "haa2c":   # haa2c.yaml has a2c_epoch in place of ppo_epoch
+        cfg["a2c_epoch"] = cfg.pop("ppo_epoch")
     tx = jcommon.make_optimizer(LR, EPS, 0.0, MAX_NORM)
-    jactor = JActor(jpol, space, tx, cfg)
+    jactor = getattr(jhappo, ACTOR_CLASSES[algo])(jpol, space, tx, cfg)
     jbatch = JActorBatch(obs=jnp.asarray(obs), rnn_states=jnp.zeros((T, B, 1, 16)),
                          actions=jnp.asarray(actions), logp=jnp.asarray(logp),
                          masks=jnp.ones((T, B, 1)), active_masks=jnp.asarray(active),
@@ -99,7 +106,7 @@ def _actor_case(num_mini_batch, seed=0):
     tpol.load_state_dict(convert.policy_state_dict(_np_tree(params)))
     tstate = tcommon.AgentTrainState(
         tpol, tcommon.make_optimizer(tpol.parameters(), LR, EPS, 0.0, MAX_NORM))
-    tactor = HAPPOActor(spaces.Box.create(-1.0, 1.0, ACT_DIM), cfg)
+    tactor = getattr(thappo, ACTOR_CLASSES[algo])(spaces.Box.create(-1.0, 1.0, ACT_DIM), cfg)
     perms = (None if num_mini_batch == 1 else
              torch.from_numpy(_jax_perms(key, CFG["ppo_epoch"], T * B)).long())
     tbatch = ActorBatch(obs=torch.from_numpy(obs), actions=torch.from_numpy(actions),
@@ -109,10 +116,16 @@ def _actor_case(num_mini_batch, seed=0):
     return (jactor, jstate, jstats, jbatch), (tactor, tstate, tstats, tbatch)
 
 
-@pytest.mark.parametrize("num_mini_batch", [1, 2])
-def test_happo_actor_update_matches(num_mini_batch):
+@pytest.mark.parametrize("num_mini_batch,algo", [
+    pytest.param(1, "happo", id="1"), pytest.param(2, "happo", id="2"),
+    pytest.param(1, "haa2c", id="haa2c-1"),   # no clip; epochs from a2c_epoch
+    pytest.param(2, "haa2c", id="haa2c-2"),
+    pytest.param(2, "mappo", id="mappo-2"),   # HAPPO's loss (the runner passes factor 1)
+])
+def test_happo_actor_update_matches(num_mini_batch, algo):
     (jactor, jstate, jstats, jbatch), (tactor, tstate, tstats, tbatch) = _actor_case(
-        num_mini_batch)
+        num_mini_batch, algo=algo)
+    assert tactor.ppo_epoch == CFG["ppo_epoch"] and tactor.use_clip == (algo != "haa2c")
     # [policy_loss, dist_entropy, grad_norm, ratio] averaged over steps
     _close(tstats, jstats, STAT_RTOL, STAT_ATOL)
     assert float(jstats[2]) > 0.0
@@ -379,3 +392,37 @@ def test_chunk_length_must_divide_the_rollout():
     actor = HAPPOActor(spaces.Discrete(3), _rnn_cfg(True, 1))
     with pytest.raises(ValueError, match="data_chunk_length"):
         actor.chunking.rows(12, RB)
+
+
+@pytest.mark.parametrize("updates_per_iteration,episodes", [(3, 4), (1, 2)])
+def test_linear_lr_decay_matches_optax(updates_per_iteration, episodes):
+    """make_optimizer's linear lr decay: lr·(1 − min((count // upi) / E, 1))
+    with count the steps taken before this one, as optax's schedule reads
+    it (common.py:39-43). The same gradients, over more iterations than E
+    (the lr reaches 0 and stays there), move both sides' parameters alike."""
+    rng = np.random.default_rng(5)
+    shapes = [(4, 3), (3,)]
+    init = [rng.normal(size=sh).astype(np.float32) for sh in shapes]
+    tx = jcommon.make_optimizer(LR, EPS, 0.0, MAX_NORM, True, episodes, updates_per_iteration)
+    jparams = [jnp.asarray(p) for p in init]
+    jopt = tx.init(jparams)
+    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in init]
+    topt = tcommon.make_optimizer(tparams, LR, EPS, 0.0, MAX_NORM, True, episodes,
+                                  updates_per_iteration)
+    for count in range((episodes + 2) * updates_per_iteration):
+        expected_lr = LR * (1.0 - min((count // updates_per_iteration) / episodes, 1.0))
+        grads = [rng.normal(size=sh).astype(np.float32) for sh in shapes]
+        updates, jopt = tx.update([jnp.asarray(g) for g in grads], jopt, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for p, g in zip(tparams, grads):
+            p.grad = torch.from_numpy(g)
+        topt.step()
+        assert topt.adam.param_groups[0]["lr"] == pytest.approx(expected_lr, rel=1e-12, abs=0)
+        for a, b in zip(tparams, jparams):
+            _close(a.detach(), b, 1e-6, 1e-7)
+    assert topt.count == (episodes + 2) * updates_per_iteration
+
+
+def test_weight_decay_still_refused():
+    with pytest.raises(NotImplementedError, match="weight decay.*ROADMAP"):
+        tcommon.make_optimizer([torch.nn.Parameter(torch.zeros(2))], LR, weight_decay=1e-4)

@@ -129,3 +129,27 @@ def test_smaclite_steps_on_the_card_equal_the_cpu(device, map_name):
         torch.testing.assert_close(ts_gpu.rewards.cpu(), ts_cpu.rewards, rtol=1e-6, atol=1e-7)
         a = torch.randint(0, n_actions, (X, n_agents, 1), generator=g)
         out = [e.step(o[0], a.to(e.device)) for e, o in zip(envs, out)]
+
+
+def test_cli_hatrpo_iteration_on_the_card(device, tmp_path):
+    """One tiny HATRPO iteration of the tuned SMACLite 5m_vs_6m config
+    through the entry point, on the card by default: the GAE kernel runs
+    once, and the run directory holds finite losses and a checkpoint."""
+    import json
+    from pathlib import Path
+
+    from harl_tpu_torch import train
+
+    config = Path(__file__).resolve().parent.parent / (
+        "tuned_configs/smaclite/5m_vs_6m/hatrpo/config.json")
+    before = (K.gae.launches, K.discounted_returns.launches)
+    run = Path(train.main(["--load_config", str(config), "--n_rollout_threads", "4",
+                           "--episode_length", "20", "--num_env_steps", "80",
+                           "--hidden_sizes", "[16, 16]", "--use_eval", "False",
+                           "--log_dir", str(tmp_path)]))
+    assert (K.gae.launches, K.discounted_returns.launches) == (before[0] + 1, before[1])
+    with open(run / "logs" / "progress.txt") as f:
+        (rec,) = [json.loads(line) for line in f]
+    assert torch.isfinite(torch.tensor(rec["value_loss"]))
+    assert len(rec["agent_stats"]) == 5
+    assert (run / "models" / "ckpt_80" / "state.pt").exists()

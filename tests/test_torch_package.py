@@ -54,7 +54,9 @@ def test_imports_no_jax_and_no_harl_tpu():
     """Every module of the package imports with JAX, flax and optax made
     unimportable, and loads nothing of harl_tpu."""
     names = _import_walk()
-    assert "harl_tpu_torch.runners.on_policy" in names, names
+    for name in ("runners.on_policy", "runners.common", "train", "logging.logger",
+                 "utils.checkpoint", "utils.profiling", "utils.config_tools", "algos.hatrpo"):
+        assert f"harl_tpu_torch.{name}" in names, names
     assert len(names) >= 20
 
 
@@ -103,18 +105,41 @@ def test_cpu_path_runs_when_asked():
     assert state.carry.obs.device.type == "cpu"
 
 
+def _with(algo_args, section, key, value):
+    a = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
+    a[section][key] = value
+    return a
+
+
+def _one_iteration(args, algo_args, env_args, n_agents):
+    runner = OnPolicyRunner(args, algo_args, env_args, device="cpu")
+    state, metrics = runner.train_iteration(runner.init_state(0))
+    assert tuple(metrics["actor_stats"].shape) == (n_agents, 4)
+    assert bool(torch.isfinite(metrics["actor_stats"]).all())
+    assert math.isfinite(float(metrics["value_loss"]))
+    return runner, state
+
+
 def test_unported_options_raise():
+    """What is still refused raises; share_param, HATRPO and linear lr decay,
+    refused before, run."""
     algo_args, env_args = _small_configs()
-    for section, key, value in [("algo", "share_param", True),
-                                ("model", "initialization_method", "xavier_uniform_"),
-                                ("train", "use_linear_lr_decay", True)]:
-        a = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
-        a[section][key] = value
-        with pytest.raises(NotImplementedError):
-            OnPolicyRunner(ARGS, a, env_args, device="cpu").init_state(0)
-    with pytest.raises(NotImplementedError):
-        OnPolicyRunner({"algo": "hatrpo", "env": "mamujoco_jax"}, algo_args, env_args,
-                       device="cpu")
+    for section, key, value in [("model", "initialization_method", "xavier_uniform_"),
+                                ("model", "weight_decay", 1e-4)]:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            OnPolicyRunner(ARGS, _with(algo_args, section, key, value), env_args,
+                           device="cpu").init_state(0)
+    runner, state = _one_iteration(ARGS, _with(algo_args, "algo", "share_param", True),
+                                   env_args, 6)
+    assert len(state.actors) == 1 and runner.actors[0] is runner.actors[5]
+    runner, state = _one_iteration(ARGS, _with(algo_args, "train", "use_linear_lr_decay", True),
+                                   env_args, 6)
+    assert state.actors[0].opt.lr_schedule is not None
+    trpo_args, _ = get_defaults_yaml_args("hatrpo", "mamujoco_jax")
+    trpo_args["train"].update(n_rollout_threads=4, episode_length=4)
+    trpo_args["model"].update(hidden_sizes=[8, 8])
+    trpo_args["algo"].update(critic_epoch=1)
+    _one_iteration({"algo": "hatrpo", "env": "mamujoco_jax"}, trpo_args, env_args, 6)
     # the planar env has no FP state
     with pytest.raises(NotImplementedError, match="FP"):
         OnPolicyRunner(ARGS, algo_args, dict(env_args, state_type="FP"), device="cpu")
@@ -141,12 +166,14 @@ def test_smaclite_path_defaults_to_cuda_and_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="SMACv2 randomized maps"):
         OnPolicyRunner(SMAC_ARGS, algo_args, dict(env_args, map_name="protoss_5_vs_5"),
                        device="cpu")
-    shared = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
-    shared["algo"]["share_param"] = True
-    with pytest.raises(NotImplementedError, match="share_param"):
-        OnPolicyRunner(SMAC_ARGS, shared, env_args, device="cpu")
-    with pytest.raises(NotImplementedError, match="HATRPO"):
-        OnPolicyRunner({"algo": "hatrpo", "env": "smaclite"}, algo_args, env_args, device="cpu")
+    # share_param and HATRPO, refused before, run (3m's marines are homogeneous)
+    _one_iteration(SMAC_ARGS, _with(algo_args, "algo", "share_param", True), env_args, 3)
+    trpo_args, _ = get_defaults_yaml_args("hatrpo", "smaclite")
+    trpo_args["train"].update(n_rollout_threads=3, episode_length=10)
+    trpo_args["model"].update(hidden_sizes=[8, 8], use_recurrent_policy=True,
+                              data_chunk_length=5)
+    trpo_args["algo"].update(critic_epoch=1)
+    _one_iteration({"algo": "hatrpo", "env": "smaclite"}, trpo_args, env_args, 3)
 
 
 def test_smaclite_cpu_path_runs_when_asked():
@@ -202,10 +229,15 @@ def test_off_policy_unported_options_raise():
     with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
         OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,
                         device="cpu")
+    # the training loop and evaluation, refused before, run; meshes do not
+    algo_args["train"].update(num_env_steps=12, eval_interval=2)
+    algo_args["eval"].update(use_eval=True, n_eval_rollout_threads=2, eval_episodes=2)
     runner = OffPolicyRunner(hasac, algo_args, env_args, device="cpu")
-    for entry in (runner.run, runner.evaluate):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            entry()
+    state, history = runner.run(seed=0)
+    assert len(history) == 2 and math.isfinite(history[-1]["eval_return"])
+    assert math.isfinite(runner.evaluate(state, 2, 2)[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.run(seed=0, mesh=object())
 
 
 @pytest.mark.parametrize("algo", ["hasac", "hatd3"])
