@@ -5,9 +5,9 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, then the torch.profiler
-sessions of 10, 6 and 8: a profiler session leaves the process slower, so
-every timed run comes before the first one.
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, then the
+torch.profiler sessions of 10, 6 and 8: a profiler session leaves the
+process slower, so every timed run comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -67,7 +67,19 @@ every timed run comes before the first one.
 14. check one small iteration each of HATRPO on 3m (FP, GRU), HATRPO on
    HalfCheetah 2x3 and MAPPO with share_param on HalfCheetah 2x3 on the card
    against the CPU, with HATRPO's accepted line-search fractions printed for
-   both devices (and required equal).
+   both devices (and required equal);
+15. drive the slice of MPE, Walker2d, Hopper and the discrete off-policy
+   algorithms through the CLI on the repo's tuned configs as they are (only
+   iterations or blocks cut, no eval unless stated): (a) HAPPO on MPE
+   simple_spread, 2 iterations of 20 envs x 200 steps with eval at the
+   25-step horizon; (b) HAPPO on Walker2d 6x1, 2 iterations of 20 x 200, at
+   least one episode ending unhealthy; (c) HATD3 on Hopper 3x1, (d) discrete
+   HASAC on speaker-listener (n_step 20, auto-alpha, buffer 1,000,000 rows)
+   and (e) HAD3QN on discrete simple_spread, each its warmup and 2 blocks;
+   each prints env-steps/s, and the GAE kernel runs once an iteration on (a)
+   and (b), no kernel on (c)-(e); then (f) small discrete HASAC and HAD3QN
+   blocks and a Walker2d iteration through termination on the card against
+   the CPU (actions, availability, masks and bad masks equal).
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -797,19 +809,28 @@ def drive_hasac_path(card: str, device="cuda") -> tuple:
     return launches, profile
 
 
-def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda")) -> None:
-    """One small warmup + collect + train of ``algo`` on the card and on the
-    CPU from the same parameters and the same noise (drawn on the CPU)."""
+def small_off_policy_runner(algo: str, device, noise):
+    """HalfCheetah-6x1 at small widths: 16 envs, episodes of 5 steps, warmup
+    32 rows, 4-step blocks, batch 64."""
+    return make_off_policy_runner(algo, device, noise=noise, n_envs=16, hidden=[16, 16],
+                                  episode_limit=5, warmup_steps=32, train_interval=4,
+                                  batch_size=64, buffer_size=1000,
+                                  n_step=3 if algo == "hasac" else None)
+
+
+def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda"),
+                                 make=small_off_policy_runner, label: str = None) -> None:
+    """One small warmup + collect + train of ``algo`` (``make(algo, device,
+    noise)``) on the card and on the CPU from the same parameters and the
+    same noise (drawn on the CPU). Discrete actions and availability rows
+    must be equal, floats close."""
     from harl_tpu_torch.utils.noise import GeneratorNoise
 
     runs = []
     for dev in devices:
         noise = GeneratorNoise(torch.Generator().manual_seed(5), dev,
                                torch.Generator().manual_seed(5))
-        runner = make_off_policy_runner(algo, dev, noise=noise, n_envs=16, hidden=[16, 16],
-                                        episode_limit=5, warmup_steps=32, train_interval=4,
-                                        batch_size=64, buffer_size=1000,
-                                        n_step=3 if algo == "hasac" else None)
+        runner = make(algo, dev, noise)
         state = runner.init_state(0)
         if runs:   # the card's runner starts from the CPU runner's parameters
             cpu_state = runs[0][0]
@@ -835,8 +856,12 @@ def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda")) -> None:
                              f"{rows} on the CPU")
     for name in ("share_obs", "next_share_obs", "rewards", "dones", "terms"):
         close(getattr(s_gpu.buffer, name)[:rows], getattr(s_cpu.buffer, name)[:rows])
-    for name in ("obs", "next_obs", "actions", "valid_transitions"):
+    exact = (("actions", "available_actions", "next_available_actions")
+             if runs[0][1].discrete else ())
+    for name in ("obs", "next_obs", "actions", "valid_transitions") + exact:
         for a, b in zip(getattr(s_gpu.buffer, name), getattr(s_cpu.buffer, name)):
+            if name in exact and not torch.equal(a[:rows].cpu(), b[:rows]):
+                raise AssertionError(f"{algo}: buffer {name} differ on the card")
             close(a[:rows], b[:rows])
     for k in ("episode_return_sum", "episode_count", "mean_step_reward"):
         close(c_gpu[k], c_cpu[k])
@@ -848,9 +873,9 @@ def check_off_policy_against_cpu(algo: str, devices=("cpu", "cuda")) -> None:
     for a, b in pairs:
         for va, vb in zip(a.state_dict().values(), b.state_dict().values()):
             close(va, vb)
-    log(f"small {algo} block: card == CPU (buffer rows, losses, actors, critics and "
-        f"targets at rtol {E2E_RTOL}, atol {E2E_ATOL}); {float(c_cpu['episode_count']):.0f} "
-        f"episodes ended")
+    log(f"small {label or algo} block: card == CPU (buffer rows{', discrete actions and '
+        'availability equal' if exact else ''}, losses, actors, critics and targets at rtol "
+        f"{E2E_RTOL}, atol {E2E_ATOL}); {float(c_cpu['episode_count']):.0f} episodes ended")
 
 
 # ------------------------------------------------------- the CLI (phases 12-14)
@@ -1182,6 +1207,178 @@ def check_family_against_cpu(label: str, algo: str, env: str, devices=("cpu", "c
     log(f"small {label} iteration: card == CPU (rtol {E2E_RTOL}, atol {E2E_ATOL})")
 
 
+# ------------------------------------------- MPE, Walker2d, Hopper (phase 15)
+MPE_HAPPO = "tuned_configs/pettingzoo_mpe/simple_spread_v2-continuous/happo/config.json"
+WALKER_HAPPO = "tuned_configs/mamujoco_jax/Walker2d-v2-6x1/happo/config.json"
+HOPPER_HATD3 = "tuned_configs/mamujoco_jax/Hopper-v2-3x1/hatd3/config.json"
+MPE_HASAC = "tuned_configs/pettingzoo_mpe/simple_speaker_listener_v3-discrete/hasac/config.json"
+MPE_HAD3QN = "tuned_configs/pettingzoo_mpe/simple_spread_v2-discrete/had3qn/config.json"
+# (label, config, iterations or blocks, agents, off-policy, evaluate)
+SLICE6_PATHS = (("mpe_happo", MPE_HAPPO, 2, 3, False, True),
+                ("walker_happo", WALKER_HAPPO, 2, 6, False, False),
+                ("hopper_hatd3", HOPPER_HATD3, 2, 3, True, False),
+                ("mpe_hasac_discrete", MPE_HASAC, 2, 2, True, False),
+                ("mpe_had3qn", MPE_HAD3QN, 2, 3, True, False))
+
+
+def drive_slice6_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
+    """Phase 15 (a)-(e): the tuned configs as they are (only iterations or
+    blocks cut) through ``harl_tpu_torch.train.main``: (a) HAPPO on MPE
+    simple_spread (continuous), 2 iterations of 20 envs x 200 steps with
+    evaluation at the 25-step horizon; (b) HAPPO on Walker2d 6x1, 2 iterations
+    of 20 x 200, where an episode must end unhealthy (a termination, masks 0
+    with bad masks 1); (c) HATD3 on Hopper 3x1, (d) discrete HASAC on
+    speaker-listener (n_step 20, auto-α, buffer 1,000,000 rows) and (e)
+    HAD3QN on discrete simple_spread (125 joint actions), each its warmup
+    and 2 blocks. Each prints env-steps/s over its timed iterations or
+    blocks. Returns the launches by path: GAE once an iteration on (a) and
+    (b), no kernel on (c)-(e)."""
+    from harl_tpu_torch import train
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+    by_path = {}
+    for label, config, count, n_agents, off, evaluate in SLICE6_PATHS:
+        cfg, extra = cli_args(config, shrink or {})
+        n = cfg["n_rollout_threads"]
+        steps_each = cfg["train_interval"] if off else cfg["episode_length"]
+        argv = ["--num_env_steps", str(count * steps_each * n), "--use_eval", str(evaluate)]
+        zero_launches()
+        t0 = time.perf_counter()
+        if off:
+            with Spy(OffPolicyRunner, "warmup_block") as warm, \
+                    Spy(OffPolicyRunner, "collect_block") as collects, \
+                    Spy(OffPolicyRunner, "train_block") as trains:
+                run = train.main(["--load_config", config, *argv, *extra,
+                                  "--log_dir", os.path.join(log_dir, label)])
+            times = [c[0] + t[0] for c, t in zip(collects.calls, trains.calls)]
+            widths = list(warm.calls[0][1].actors[0].hidden_sizes)
+        else:
+            # an unhealthy termination: masks 0 where the bad mask is 1
+            with Spy(OnPolicyRunner, "train_iteration") as its, \
+                    Spy(OnPolicyRunner, "returns_inputs", sync=False,
+                        keep=lambda out: ((out[2] == 0) & (out[3] == 1)).sum()) as inputs:
+                run = train.main(["--load_config", config, *argv, *extra,
+                                  "--log_dir", os.path.join(log_dir, label)])
+            times = [c[0] for c in its.calls]
+            widths = cfg_model_widths(its)
+            terminations = sum(int(c[3]) for c in inputs.calls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        expect = {"gae": 0 if off else count, "discounted_returns": 0}
+        if launches != expect or len(times) != count:
+            raise AssertionError(f"{label}: launches {launches} (expected {expect}), "
+                                 f"{len(times)} timed parts (expected {count})")
+        recs = read_run(run, n_agents, off)
+        what = ""
+        if evaluate:
+            evals = [r for r in recs if "eval_return" in r]
+            if not evals or not math.isfinite(evals[-1]["eval_return"]):
+                raise AssertionError(f"{label}: eval records {evals}")
+            what = f", eval return {evals[-1]['eval_return']:.4f}"
+        if label == "walker_happo":
+            if terminations < 1:
+                raise AssertionError("walker_happo: no episode ended unhealthy")
+            what = f", {terminations} env steps ended unhealthy (masks 0, bad masks 1)"
+        if off:
+            what += f", warmup {warm.calls[0][0]:.4f} s"
+        rate = (len(times) - 1) * steps_each * n / sum(times[1:])
+        print(f"{label}: {config} ({n} envs, {'blocks of ' if off else ''}{steps_each} steps, "
+              f"MLP {widths}) through train.main in {wall:.2f} s; {'blocks' if off else 'iterations'}"
+              f" of {', '.join(f'{t:.4f}' for t in times)} s, {rate:.1f} env-steps/s over the "
+              f"last {len(times) - 1}{what}; launches {launches} on {card}", flush=True)
+        by_path[label] = launches
+    return by_path
+
+
+def small_mpe_runner(algo: str, device, noise):
+    """Discrete MPE at small widths, HASAC on speaker-listener (Discrete(3)
+    and Discrete(5)) or HAD3QN on simple_spread: the block sizes of
+    ``small_off_policy_runner``, episodes of 5 steps."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "pettingzoo_mpe")
+    algo_args["train"].update(n_rollout_threads=16, num_env_steps=10 ** 9, warmup_steps=32,
+                              train_interval=4, update_per_train=1)
+    algo_args["algo"].update(batch_size=64, buffer_size=1000)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    if algo == "hasac":
+        algo_args["algo"].update(n_step=3, auto_alpha=True)
+    scenario = "simple_speaker_listener_v3" if algo == "hasac" else "simple_spread_v2"
+    return OffPolicyRunner({"algo": algo, "env": "pettingzoo_mpe"}, algo_args,
+                           {"scenario": scenario, "continuous_actions": False, "max_cycles": 5},
+                           device=device, noise=noise)
+
+
+def check_walker_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 15 (f), Walker2d: one small HAPPO iteration (16 envs x 10
+    steps, 2x3) on the card and on the CPU from the same parameters and
+    noise, half the envs tipped over so that they end unhealthy inside the
+    rollout: masks and bad masks equal, floats close."""
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    runs = []
+    for dev in devices:
+        algo_args, env_args = get_defaults_yaml_args("happo", "mamujoco_jax")
+        algo_args["train"].update(n_rollout_threads=16, episode_length=10, num_env_steps=10 ** 9)
+        algo_args["model"].update(hidden_sizes=[16, 16])
+        env_args.update(scenario="Walker2d-v2", agent_conf="2x3", episode_limit=1000)
+        runner = OnPolicyRunner({"algo": "happo", "env": "mamujoco_jax"}, algo_args, env_args,
+                                device=dev, noise=GeneratorNoise(torch.Generator().manual_seed(6),
+                                                                 dev))
+        state = runner.init_state(0)
+        env = state.carry.env_state
+        tip = torch.zeros_like(env.q)
+        tip[::2, 2] = 0.97
+        state.carry = state.carry._replace(env_state=env._replace(q=env.q + tip,
+                                                                  qd=env.qd + 4.0 * (tip != 0)))
+        if runs:   # the card's runner starts from the CPU runner's parameters
+            for a, b in zip(state.actors + [state.critic], runs[0][0].actors + [runs[0][0].critic]):
+                a.net.load_state_dict(b.net.state_dict())
+        runs.append((state, runner))
+    outs = []
+    for state, runner in runs:
+        first_masks0 = state.carry.masks[:, 0]
+        data = runner.rollout(state)
+        c = state.carry
+        outs.append((data, runner.update_phase(state, data, first_masks0, c.share_obs, c.masks,
+                                               c.critic_rnn)))
+    torch.cuda.synchronize()
+    (d_cpu, m_cpu), (d_gpu, m_gpu) = outs
+    for k in ("next_masks", "next_bad_masks", "masks"):
+        if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
+            raise AssertionError(f"walker: {k} differ on the card")
+    ended = int(((d_cpu["next_masks"] == 0) & (d_cpu["next_bad_masks"] == 1)).sum())
+    if ended < 1:
+        raise AssertionError("walker: no env ended unhealthy in the small iteration")
+    close = lambda a, b: torch.testing.assert_close(
+        torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
+    for a, b in zip(d_gpu["actions"], d_cpu["actions"]):
+        close(a, b)
+    for k in ("value_loss", "critic_grad_norm", "mean_step_reward", "episode_return_sum"):
+        close(m_gpu[k], m_cpu[k])
+    close(m_gpu["actor_stats"], m_cpu["actor_stats"])
+    for a, b in zip(runs[1][0].actors + [runs[1][0].critic],
+                    runs[0][0].actors + [runs[0][0].critic]):
+        for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
+            close(va, vb)
+    log(f"small walker2d iteration: card == CPU (masks and bad masks equal, {ended} env steps "
+        f"ended unhealthy; floats at rtol {E2E_RTOL}, atol {E2E_ATOL})")
+
+
+def check_slice6_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 15 (f): discrete HASAC and HAD3QN blocks and a Walker2d
+    iteration through termination, on the card against the CPU."""
+    for algo in ("hasac", "had3qn"):
+        check_off_policy_against_cpu(algo, devices, make=small_mpe_runner,
+                                     label=f"{algo} discrete mpe")
+    check_walker_against_cpu(devices)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1209,12 +1406,18 @@ def main() -> int:
     check_family_against_cpu("hatrpo halfcheetah 2x3", "hatrpo", "mamujoco_jax")
     check_family_against_cpu("mappo share_param halfcheetah 2x3", "mappo", "mamujoco_jax",
                              share_param=True, ppo_epoch=2)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        slice6 = drive_slice6_paths(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_slice6_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
     smac_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
-               "cli_hatrpo_smaclite": cli_launches, **cli_paths}
+               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:

@@ -8,35 +8,50 @@
     Adam over both nets;
   * ``SoftTwinContinuousQCritic`` — the SAC target r + γⁿ(min Q′ − α·logπ′)
     (1 − term), optional ValueNorm on the targets (updated on the
-    de-normalised targets, then applied), Huber loss, critic-side auto-α.
+    de-normalised targets, then applied), Huber loss, critic-side auto-α;
+    a Discrete agent's action enters the joint action one-hot;
+  * ``DiscreteQCritic`` — HAD3QN's one ``DuelingQNet`` over the joint action
+    space ∏ nᵢ, with the mixed-radix joint ↔ individual codecs and an MSE
+    TD step.
 
-The loss is Huber or err² (no ½), summed over the twins. Box actions only;
-one-hot joint actions of discrete spaces and ``DiscreteQCritic`` (HAD3QN)
-are on the roadmap.
+The continuous critics' loss is Huber or err² (no ½), summed over the twins.
+MultiDiscrete actions raise, naming their roadmap item.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from harl_tpu_torch.algos.common import adam, huber_loss, soft_update
-from harl_tpu_torch.models.values import ContinuousQNet
+from harl_tpu_torch.models.values import ContinuousQNet, DuelingQNet
 from harl_tpu_torch.ops.value_norm import (ValueNormState, denormalize, init_value_norm,
                                            normalize, update_value_norm)
 from harl_tpu_torch.utils import spaces
 
-DISCRETE_TODO = ("discrete and MultiDiscrete off-policy actions (one-hot joint actions, "
-                 "ST-Gumbel HASAC, HAD3QN) are not ported yet (ROADMAP.md, Queue A: what "
-                 "the off-policy path left)")
+MULTI_DISCRETE_TODO = ("MultiDiscrete off-policy actions are not ported yet (ROADMAP.md, "
+                       "Queue A: MultiDiscrete heads)")
 
 
-def require_box(act_spaces) -> None:
-    if any(spaces.space_kind(sp) != "Box" for sp in act_spaces):
-        raise NotImplementedError(DISCRETE_TODO)
+def action_kind(space) -> str:
+    """"Box" or "Discrete"; MultiDiscrete raises, naming its roadmap item."""
+    kind = spaces.space_kind(space)
+    if kind == "MultiDiscrete":
+        raise NotImplementedError(MULTI_DISCRETE_TODO)
+    return kind
+
+
+def encode_joint_actions(actions, act_spaces) -> torch.Tensor:
+    """The agents' buffer actions as one joint action: Box actions as they
+    are, a Discrete agent's index one-hot (soft_twin_continuous_q_critic.py:107-127)."""
+    return torch.cat([a if action_kind(sp) == "Box"
+                      else F.one_hot(a[..., 0].long(), sp.n).to(torch.float32)
+                      for a, sp in zip(actions, act_spaces)], dim=-1)
 
 
 @dataclasses.dataclass
@@ -69,8 +84,9 @@ class ContinuousQCritic:
         self.use_valuenorm = cfg.get("use_valuenorm", False) and self.soft
         self.hidden_sizes = tuple(cfg["hidden_sizes"])
         self.activation_func = cfg.get("activation_func", "relu")
-        require_box(act_spaces)
-        self.joint_dim = sum(sp.shape[0] for sp in act_spaces)
+        # an agent's width in the joint action: a Box's dim, a Discrete's n
+        self.joint_dim = sum(sp.shape[0] if action_kind(sp) == "Box" else sp.n
+                             for sp in act_spaces)
 
     def init(self, generator: Optional[torch.Generator] = None) -> QCriticState:
         nets = nn.ModuleList(
@@ -101,7 +117,7 @@ class ContinuousQCritic:
               alpha=None) -> torch.Tensor:
         """One Adam step on the n-step TD loss; updates ``state`` in place
         and returns the loss (a tensor on the device)."""
-        joint_actions = torch.cat(sample.actions, dim=-1)   # Box actions: the joint action
+        joint_actions = encode_joint_actions(sample.actions, self.act_spaces)
         with torch.no_grad():
             next_q = self._min_q(state.targets, sample.next_share_obs, next_joint_actions)
             not_end = 1.0 - (sample.terms if self.use_proper_time_limits else sample.dones)
@@ -158,3 +174,96 @@ class SoftTwinContinuousQCritic(TwinContinuousQCritic):
     def __init__(self, share_obs_dim: int, act_spaces, cfg: dict, device=None):
         super().__init__(share_obs_dim, act_spaces, cfg, device)
         self.use_huber_loss = cfg.get("use_huber_loss", True)
+
+
+class DiscreteQCritic:
+    """Joint-action dueling Q critic of HAD3QN (discrete_q_critic.py): one
+    ``DuelingQNet`` over the joint action space ∏ nᵢ; joint index
+    Σᵢ aᵢ·∏_{j<i} nⱼ, agent 0 the least significant digit."""
+
+    def __init__(self, share_obs_dim: int, act_spaces, cfg: dict, device=None):
+        if any(spaces.space_kind(sp) != "Discrete" for sp in act_spaces):
+            raise ValueError("DiscreteQCritic needs Discrete action spaces")
+        self.share_obs_dim = share_obs_dim
+        self.act_spaces = act_spaces
+        self.device = device
+        self.action_dims = [sp.n for sp in act_spaces]
+        self.joint_action_dim = math.prod(self.action_dims)
+        self.critic_lr = cfg["critic_lr"]
+        self.polyak = cfg["polyak"]
+        self.use_proper_time_limits = cfg.get("use_proper_time_limits", True)
+        self.net_kwargs = dict(
+            base_hidden_sizes=tuple(cfg.get("base_hidden_sizes", cfg["hidden_sizes"])),
+            base_activation_func=cfg.get("base_activation_func", "relu"),
+            dueling_v_hidden_sizes=tuple(cfg.get("dueling_v_hidden_sizes", [128])),
+            dueling_v_activation_func=cfg.get("dueling_v_activation_func", "hardswish"),
+            dueling_a_hidden_sizes=tuple(cfg.get("dueling_a_hidden_sizes", [128])),
+            dueling_a_activation_func=cfg.get("dueling_a_activation_func", "hardswish"))
+
+    def init(self, generator: Optional[torch.Generator] = None) -> QCriticState:
+        nets = nn.ModuleList([DuelingQNet(self.share_obs_dim, self.joint_action_dim,
+                                          device=self.device, generator=generator,
+                                          **self.net_kwargs)])
+        targets = copy.deepcopy(nets).requires_grad_(False)
+        return QCriticState(nets, targets, adam(nets.parameters(), self.critic_lr))
+
+    # mixed-radix codecs (discrete_q_critic.py:149-217)
+    def indiv_to_joint(self, actions) -> torch.Tensor:
+        """Per-agent indices (…, 1) → joint indices (…, 1), int64."""
+        joint, accum = torch.zeros_like(actions[0], dtype=torch.long), 1
+        for a, dim in zip(actions, self.action_dims):
+            joint = joint + accum * a.long()
+            accum *= dim
+        return joint
+
+    def joint_to_indiv(self, joint: torch.Tensor):
+        out, a = [], joint.long()
+        for dim in self.action_dims:
+            out.append(a % dim)
+            a = a // dim
+        return out
+
+    def get_joint_idx(self, actions, agent_id: int) -> torch.Tensor:
+        """(batch, n_agent_id) joint indices of every action of ``agent_id``
+        with the other agents' actions held."""
+        n_i = self.action_dims[agent_id]
+        joint = torch.zeros((actions[0].shape[0], n_i), dtype=torch.long,
+                            device=actions[0].device)
+        accum = 1
+        for i, dim in enumerate(self.action_dims):
+            if i == agent_id:
+                joint = joint + accum * torch.arange(n_i, device=joint.device)[None, :]
+            else:
+                joint = joint + accum * actions[i].long()
+            accum *= dim
+        return joint
+
+    @staticmethod
+    def q_all(nets: nn.ModuleList, share_obs: torch.Tensor) -> torch.Tensor:
+        """Q of every joint action, (batch, ∏ nᵢ)."""
+        return nets[0](share_obs)
+
+    def get_values(self, state: QCriticState, share_obs, actions) -> torch.Tensor:
+        return torch.take_along_dim(self.q_all(state.nets, share_obs),
+                                    self.indiv_to_joint(actions), dim=-1)
+
+    def train(self, state: QCriticState, sample, next_actions) -> torch.Tensor:
+        """One Adam step on mean (Q(s, a) − (r + γⁿ·Q′(s′, a′)·(1 − term)))²
+        (``dones`` in place of ``terms`` without ``use_proper_time_limits``);
+        ``next_actions`` are the agents' greedy target actions (…, 1).
+        Updates ``state`` in place and returns the loss."""
+        with torch.no_grad():
+            next_q = torch.take_along_dim(self.q_all(state.targets, sample.next_share_obs),
+                                          self.indiv_to_joint(next_actions), dim=-1)
+            not_end = 1.0 - (sample.terms if self.use_proper_time_limits else sample.dones)
+            q_targets = sample.rewards + sample.gamma * next_q * not_end
+        q = torch.take_along_dim(self.q_all(state.nets, sample.share_obs),
+                                 self.indiv_to_joint(sample.actions), dim=-1)
+        loss = ((q - q_targets) ** 2).mean()
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        state.opt.step()
+        return loss.detach()
+
+    def soft_update_targets(self, state: QCriticState) -> None:
+        soft_update(state.targets, state.nets, self.polyak)

@@ -11,7 +11,9 @@
     and every sample carries its own γⁿ.
 
 Per-agent obs, action and valid-transition columns are lists of tensors, so
-heterogeneous widths need no padding. ``idx`` and ``cur_size`` are host
+heterogeneous widths need no padding. Under discrete actions each agent also
+has availability rows before and after the step (``avail_dims``), sampled at
+the start and at the last n-step row. ``idx`` and ``cur_size`` are host
 ints: the host knows how many rows it inserted, so no insert or sample waits
 on the device. The FP layout is on the roadmap.
 """
@@ -36,17 +38,22 @@ class Sample(NamedTuple):
     next_share_obs: torch.Tensor
     next_obs: List[torch.Tensor]
     gamma: torch.Tensor                     # (batch, 1) per-sample γⁿ
+    available_actions: Optional[List[torch.Tensor]] = None        # per agent (batch, n_i)
+    next_available_actions: Optional[List[torch.Tensor]] = None
 
 
 PER_AGENT = ("obs", "next_obs", "actions", "valid_transitions")
+AVAIL = ("available_actions", "next_available_actions")
 
 
 class ReplayBuffer:
     """A ring of ``buffer_size`` rows; ``insert`` writes one step of B rows
-    in place."""
+    in place. With ``avail_dims`` (discrete actions), per-agent availability
+    rows too."""
 
     def __init__(self, buffer_size: int, share_obs_dim: int, obs_dims: Sequence[int],
-                 act_dims: Sequence[int], device=None):
+                 act_dims: Sequence[int], device=None,
+                 avail_dims: Optional[Sequence[int]] = None):
         S = buffer_size
 
         def z(d):
@@ -58,6 +65,9 @@ class ReplayBuffer:
         self.next_obs = [z(d) for d in obs_dims]
         self.actions = [z(d) for d in act_dims]
         self.valid_transitions = [torch.ones((S, 1), device=device) for _ in obs_dims]
+        self.available_actions = None if avail_dims is None else [z(d) for d in avail_dims]
+        self.next_available_actions = (None if avail_dims is None
+                                       else [z(d) for d in avail_dims])
         self.rewards, self.dones, self.terms = z(1), z(1), z(1)
         self.idx = 0        # next row to write
         self.cur_size = 0   # rows written so far, at most S
@@ -65,14 +75,15 @@ class ReplayBuffer:
     def insert(self, batch: dict) -> None:
         """Write one vectorised step: ``batch`` has share_obs, next_share_obs,
         rewards, dones, terms (B, ·) and per-agent lists obs, next_obs,
-        actions, valid_transitions (B, ·)."""
+        actions, valid_transitions (B, ·), and available_actions,
+        next_available_actions where the buffer keeps them."""
         S, B = self.buffer_size, batch["share_obs"].shape[0]
         # rows (idx + arange(B)) % S as at most two slices
         first = min(B, S - self.idx)
         spans = [(self.idx, 0, first)] + ([(0, first, B - first)] if first < B else [])
         pairs = [(getattr(self, k), batch[k]) for k in
                  ("share_obs", "next_share_obs", "rewards", "dones", "terms")]
-        for k in PER_AGENT:
+        for k in PER_AGENT + (AVAIL if self.available_actions is not None else ()):
             pairs += list(zip(getattr(self, k), batch[k]))
         for dst, src in pairs:
             for row, start, n in spans:
@@ -112,6 +123,7 @@ class ReplayBuffer:
             rew = torch.where(ef[:, None], 0.0, rew)
             rew = self.rewards[now] + gamma * rew
         take = lambda arr, i: arr.index_select(0, i)
+        avail = self.available_actions is not None
         return Sample(
             share_obs=take(self.share_obs, start),
             obs=[take(o, start) for o in self.obs],
@@ -123,6 +135,9 @@ class ReplayBuffer:
             next_share_obs=take(self.next_share_obs, final),
             next_obs=[take(o, final) for o in self.next_obs],
             gamma=torch.pow(gamma, steps)[:, None],
+            available_actions=[take(a, start) for a in self.available_actions] if avail else None,
+            next_available_actions=([take(a, final) for a in self.next_available_actions]
+                                    if avail else None),
         )
 
 

@@ -4,8 +4,12 @@ An environment steps a whole batch of instances at once; the JAX package's
 ``vmap`` becomes an explicit leading batch dimension X. Its state is a
 NamedTuple of tensors with X first, and
 
-    env.reset(noise)             -> (state, TimeStep)   noise: (uniform, normal)
+    env.reset(noise)             -> (state, TimeStep)
     env.step(state, actions)     -> (state, TimeStep)
+
+where ``noise`` is the tuple of tensors that ``env.reset_noise_spec`` asks
+of the noise source (``utils/noise.py``): the reset's draws, made by the
+caller so that a test can hand in the JAX package's.
 
 ``auto_reset_step`` keeps the JAX semantics (core.py:49-78): a fresh reset
 state is drawn for EVERY env on EVERY step and selected with ``where`` where
@@ -70,9 +74,9 @@ class VecEnv:
         self.action_space = env.action_space
 
     def reset(self, noise) -> Tuple[Any, TimeStep]:
-        return self.env.reset(noise.reset_noise(self.n_envs, self.env.reset_noise_dim))
+        return self.env.reset(noise.reset_noise(self.n_envs, self.env.reset_noise_spec))
 
     def step(self, state, actions: torch.Tensor, noise) -> Transition:
         return auto_reset_step(
             self.env, state, actions,
-            noise.reset_noise(self.n_envs, self.env.reset_noise_dim))
+            noise.reset_noise(self.n_envs, self.env.reset_noise_spec))

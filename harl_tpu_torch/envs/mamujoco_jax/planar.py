@@ -1,8 +1,9 @@
-"""Planar HalfCheetah for the port (counterpart of
+"""Planar HalfCheetah, Walker2d and Hopper for the port (counterpart of
 ``harl_tpu/envs/mamujoco_jax/planar.py``).
 
-The robot is an articulated planar rigid-body tree in generalized coordinates
-q = (x, z, pitch, θ₁…θ₆), stepped as a batch of X instances on one device:
+Each robot is an articulated planar rigid-body tree in generalized
+coordinates q = (x, z, pitch, θ₁…θₙ), stepped as a batch of X instances on
+one device:
 
     M(q) = Σ mᵢ JᵢᵀJᵢ + Σ Iᵢ gᵢgᵢᵀ + diag(armature)
     Q    = Bτ + spring/limit + gravity + contact − coriolis
@@ -14,10 +15,13 @@ with the closed-form kinematics of the JAX package's batch form
 and the same unrolled Gauss–Jordan solve (no pivoting: M + dt·D is SPD).
 Ground contact is the same soft-penalty model on capsule spheres.
 
-Only HalfCheetah is ported. Walker2d and Hopper, which terminate when
-unhealthy, are on the roadmap. Constants are computed in float64 with numpy
-and stored in float32, as the JAX package stores them; the arithmetic is
-float32.
+The cheetah never terminates: its episodes end by truncation at
+``episode_limit``. Walker2d and Hopper earn a healthy reward and terminate
+when unhealthy (torso height, pitch, and for the hopper every joint angle and
+velocity in range): a termination clears ``masks``, and ``bad_transition``
+marks truncations only. Their state vectors clip qvel to ±10. Constants are
+computed in float64 with numpy and stored in float32, as the JAX package
+stores them; the arithmetic is float32.
 """
 from __future__ import annotations
 
@@ -68,10 +72,17 @@ class RobotSpec:
     friction_vreg: float = 0.1
     limit_stiffness: float = 4000.0
     limit_damping: float = 40.0
-    reset_qpos_noise: float = 0.1     # uniform half-width
-    reset_qvel_noise: float = 0.1     # qvel = scale · N(0, 1)
+    reset_qpos_noise: float = 5e-3     # uniform half-width
+    reset_qvel_noise: float = 5e-3
+    reset_qvel_normal: bool = False    # cheetah: qvel = scale · N(0, 1)
     forward_reward_weight: float = 1.0
-    ctrl_cost_weight: float = 0.1
+    ctrl_cost_weight: float = 1e-3
+    healthy_reward: float = 0.0
+    terminate_when_unhealthy: bool = False
+    healthy_z_range: Tuple[float, float] = (-np.inf, np.inf)
+    healthy_angle_range: Tuple[float, float] = (-np.inf, np.inf)
+    healthy_state_range: Tuple[float, float] = (-np.inf, np.inf)
+    clip_qvel_obs: float = 0.0         # 0: no clipping (cheetah)
 
     @property
     def n_bodies(self) -> int:
@@ -136,9 +147,89 @@ HALF_CHEETAH = RobotSpec(
     frame_skip=5,
     contact_stiffness=8000.0,
     contact_damping=250.0,
+    reset_qpos_noise=0.1,
+    reset_qvel_noise=0.1,
+    reset_qvel_normal=True,
+    forward_reward_weight=1.0,
+    ctrl_cost_weight=0.1,
 )
 
-SPECS = {"HalfCheetah": HALF_CHEETAH}
+_W_RANGE = ((-150 * math.pi / 180, 0.0), (-150 * math.pi / 180, 0.0),
+            (-45 * math.pi / 180, 45 * math.pi / 180))
+
+WALKER2D = RobotSpec(
+    name="Walker2d",
+    parents=(-1, 0, 1, 2, 0, 4, 5),
+    body_pos=((0, 0), (0, -0.2), (0, -0.7), (0.2, -0.35),
+              (0, -0.2), (0, -0.7), (0.2, -0.35)),
+    joint_pos=((0, 0), (0, 0), (0, 0.25), (-0.2, 0.1),
+               (0, 0), (0, 0.25), (-0.2, 0.1)),
+    joint_sign=(-1.0,) * 6,
+    geoms=(
+        Geom(0, (0.0, 0.0), (0.0, 1.0), 0.2, 0.05, 0.9),           # torso
+        Geom(1, (0.0, -0.225), (0.0, 1.0), 0.225, 0.05, 0.9),      # thigh
+        Geom(2, (0.0, 0.0), (0.0, 1.0), 0.25, 0.04, 0.9),          # leg
+        Geom(3, (-0.1, 0.1), (-1.0, 0.0), 0.1, 0.06, 0.9),         # foot
+        Geom(4, (0.0, -0.225), (0.0, 1.0), 0.225, 0.05, 0.9),      # thigh_left
+        Geom(5, (0.0, 0.0), (0.0, 1.0), 0.25, 0.04, 0.9),          # leg_left
+        Geom(6, (-0.1, 0.1), (-1.0, 0.0), 0.1, 0.06, 1.9),         # foot_left
+    ),
+    joint_range=_W_RANGE + _W_RANGE,
+    joint_damping=(0.1,) * 6,
+    joint_stiffness=(0.0,) * 6,
+    joint_armature=(0.01,) * 6,
+    gears=(100.0,) * 6,
+    total_mass=None,
+    z_off=0.0,
+    qpos0_z=1.25,
+    dt=0.002,
+    frame_skip=4,
+    contact_stiffness=20000.0,
+    contact_damping=500.0,
+    forward_reward_weight=1.0,
+    ctrl_cost_weight=1e-3,
+    healthy_reward=1.0,
+    terminate_when_unhealthy=True,
+    healthy_z_range=(0.8, 2.0),
+    healthy_angle_range=(-1.0, 1.0),
+    clip_qvel_obs=10.0,
+)
+
+HOPPER = RobotSpec(
+    name="Hopper",
+    parents=(-1, 0, 1, 2),
+    body_pos=((0, 0), (0, -0.2), (0, -0.7), (0.13, -0.35)),
+    joint_pos=((0, 0), (0, 0), (0, 0.25), (-0.13, 0.1)),
+    joint_sign=(-1.0,) * 3,
+    geoms=(
+        Geom(0, (0.0, 0.0), (0.0, 1.0), 0.2, 0.05, 0.9),           # torso
+        Geom(1, (0.0, -0.225), (0.0, 1.0), 0.225, 0.05, 0.9),      # thigh
+        Geom(2, (0.0, 0.0), (0.0, 1.0), 0.25, 0.04, 0.9),          # leg
+        Geom(3, (-0.065, 0.1), (-1.0, 0.0), 0.195, 0.06, 2.0),     # foot
+    ),
+    joint_range=_W_RANGE,
+    joint_damping=(1.0,) * 3,
+    joint_stiffness=(0.0,) * 3,
+    joint_armature=(1.0,) * 3,
+    gears=(200.0,) * 3,
+    total_mass=None,
+    z_off=0.0,
+    qpos0_z=1.25,
+    dt=0.002,
+    frame_skip=4,
+    contact_stiffness=20000.0,
+    contact_damping=500.0,
+    forward_reward_weight=1.0,
+    ctrl_cost_weight=1e-3,
+    healthy_reward=1.0,
+    terminate_when_unhealthy=True,
+    healthy_z_range=(0.7, np.inf),
+    healthy_angle_range=(-0.2, 0.2),
+    healthy_state_range=(-100.0, 100.0),
+    clip_qvel_obs=10.0,
+)
+
+SPECS = {"HalfCheetah": HALF_CHEETAH, "Walker2d": WALKER2D, "Hopper": HOPPER}
 
 
 def gauss_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -326,7 +417,8 @@ class PlanarMAMuJoCo:
     """MAMuJoCo factorization of the planar robot over a batch of envs:
     contiguous actuator partitions by ``agent_conf`` "NxM"; per-agent obs =
     standardized concat(state, one-hot agent id); share_obs = state; team
-    reward; truncation at ``episode_limit`` ⇒ ``bad_transition``."""
+    reward; truncation at ``episode_limit`` ⇒ ``bad_transition``, unhealthy
+    termination (Walker2d, Hopper) ⇒ ``dones`` alone."""
 
     def __init__(self, dyn: PlanarDynamics, n_agents: int, joints_per_agent: int,
                  episode_limit: int = 1000):
@@ -353,8 +445,10 @@ class PlanarMAMuJoCo:
         return self.state_dim + self.n_agents
 
     @property
-    def reset_noise_dim(self) -> int:
-        return self.spec.dof
+    def reset_noise_spec(self):
+        """qpos's uniforms, then qvel's normals (cheetah) or uniforms."""
+        dof = self.spec.dof
+        return (("uniform", dof), ("normal" if self.spec.reset_qvel_normal else "uniform", dof))
 
     @property
     def observation_space(self):
@@ -375,15 +469,17 @@ class PlanarMAMuJoCo:
 
     # ------------------------------------------------------------------ api
     def reset(self, noise: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[PlanarState, TimeStep]:
-        """``noise`` = (uniform [0,1), standard normal), each (X, dof):
-        qpos = qpos0 + U(−a, a), qvel = scale·N(0, 1) (planar.py:647-662)."""
+        """``noise`` = (uniform [0,1), standard normal or uniform [0, 1)),
+        each (X, dof), as ``reset_noise_spec`` asks: qpos = qpos0 + U(−a, a),
+        qvel = scale·N(0, 1) (cheetah) or U(−scale, scale) (planar.py:647-662)."""
         spec = self.spec
-        u, n = noise
+        u, v = noise
         a = spec.reset_qpos_noise
         q0 = torch.zeros(spec.dof, device=self.device)
         q0[1] = spec.qpos0_z
-        q = q0 + torch.clamp(u * (a - (-a)) + (-a), min=-a)
-        qd = spec.reset_qvel_noise * n
+        q = q0 + _uniform(u, a)
+        qd = (spec.reset_qvel_noise * v if spec.reset_qvel_normal
+              else _uniform(v, spec.reset_qvel_noise))
         t = torch.zeros(q.shape[0], dtype=torch.int32, device=self.device)
         state = PlanarState(q=q, qd=qd, t=t)
         zeros = torch.zeros(q.shape[0], device=self.device)
@@ -398,16 +494,35 @@ class PlanarMAMuJoCo:
         q, qd = self.dyn.physics_step(state.q, state.qd, flat)
         vel = (q[:, 0] - state.q[:, 0]) / (spec.dt * spec.frame_skip)
         ctrl = (torch.clamp(flat, -1.0, 1.0) ** 2).sum(dim=1)
-        reward = spec.forward_reward_weight * vel - spec.ctrl_cost_weight * ctrl
+        healthy = self._is_healthy(q, qd)
+        reward = (spec.forward_reward_weight * vel - spec.ctrl_cost_weight * ctrl
+                  + spec.healthy_reward * (healthy.to(q.dtype) if spec.terminate_when_unhealthy
+                                           else 1.0))
         new_t = state.t + 1
-        done = new_t >= self.episode_limit   # truncation only: the cheetah never terminates
+        trunc = new_t >= self.episode_limit
+        term = ~healthy if spec.terminate_when_unhealthy else torch.zeros_like(trunc)
         new_state = PlanarState(q=q, qd=qd, t=new_t)
-        return new_state, self._timestep(new_state, reward, done, done)
+        return new_state, self._timestep(new_state, reward, term | trunc, trunc & ~term)
+
+    def _is_healthy(self, q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
+        """(X,) bool: torso height and pitch in range, and for the hopper
+        every |q[2:]|, |qd| below the state bound (planar.py:688-698)."""
+        spec = self.spec
+        z = q[:, 1] + (spec.z_off if spec.qpos0_z == 0.0 else 0.0)
+        ok = (z > spec.healthy_z_range[0]) & (z < spec.healthy_z_range[1])
+        ok = ok & (q[:, 2] > spec.healthy_angle_range[0]) & (q[:, 2] < spec.healthy_angle_range[1])
+        if np.isfinite(spec.healthy_state_range[0]):
+            sv = torch.cat([q[:, 2:], qd], dim=1)
+            ok = ok & (sv.abs() < spec.healthy_state_range[1]).all(dim=1)
+        return ok
 
     # ---------------------------------------------------------- observation
     def _timestep(self, state: PlanarState, reward, done, bad) -> TimeStep:
         X, N = state.q.shape[0], self.n_agents
-        sv = torch.cat([state.q[:, 1:], state.qd], dim=1)                  # (X, ds)
+        qd = state.qd
+        if self.spec.clip_qvel_obs > 0:
+            qd = torch.clamp(qd, -self.spec.clip_qvel_obs, self.spec.clip_qvel_obs)
+        sv = torch.cat([state.q[:, 1:], qd], dim=1)                        # (X, ds)
         obs = torch.cat([sv[:, None].expand(X, N, sv.shape[1]),
                          self.eye.expand(X, N, N)], dim=-1)
         # per-obs standardization with the population std (ddof=0, like
@@ -424,15 +539,19 @@ class PlanarMAMuJoCo:
         )
 
 
+def _uniform(u: torch.Tensor, a: float) -> torch.Tensor:
+    """U(−a, a) from u on [0, 1), as ``jax.random.uniform`` maps it."""
+    return torch.clamp(u * (a - (-a)) + (-a), min=-a)
+
+
 def make_planar(env_args: dict, device: torch.device) -> PlanarMAMuJoCo:
     scenario = env_args.get("scenario", "HalfCheetah-v2")
     base = scenario.split("-")[0]
     if base not in SPECS:
-        raise NotImplementedError(
-            f"planar scenario {scenario!r} is not ported yet; the port has "
-            f"{sorted(SPECS)} (ROADMAP.md, remaining pure-JAX envs)")
+        raise ValueError(f"no planar spec for scenario {scenario!r}; available: "
+                         f"{sorted(SPECS)}")
     spec = SPECS[base]
-    conf = env_args.get("agent_conf", "6x1")
+    conf = env_args.get("agent_conf", {"HalfCheetah": "6x1", "Walker2d": "2x3"}.get(base, "3x1"))
     n_agents, joints = (int(x) for x in conf.split("x"))
     if n_agents * joints > spec.n_joints:
         raise ValueError(f"agent_conf {conf} exceeds {spec.n_joints} joints")

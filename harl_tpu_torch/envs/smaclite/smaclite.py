@@ -334,6 +334,12 @@ class SMACLite:
         return 2 * (self.n_allies + self.n_enemies)
 
     @property
+    def reset_noise_spec(self):
+        """The spawn jitter's uniforms; the normal half is not read."""
+        d = self.reset_noise_dim
+        return (("uniform", d), ("normal", d))
+
+    @property
     def shield_bits_ally(self) -> int:
         return 1 if set(self.ally_types) & set(PROTOSS_TYPES) else 0
 

@@ -2,7 +2,8 @@
 
 ``StochasticPolicy``: MLPBase → optional GRU → ACTLayer. The CNN path is on
 the roadmap. The off-policy actors: ``SquashedGaussianPolicy`` (HASAC, Box)
-and ``DeterministicPolicy`` (HADDPG/HATD3/MADDPG/MATD3), on ``PlainMLP``.
+and ``DeterministicPolicy`` (HADDPG/HATD3/MADDPG/MATD3), on ``PlainMLP``,
+and ``StochasticMlpPolicy`` (HASAC, Discrete): MLPBase → ACTLayer.
 """
 from __future__ import annotations
 
@@ -56,6 +57,26 @@ class StochasticPolicy(nn.Module):
                                                  self.rnn.hidden_size)
             x, rnn_states = self.rnn(x, rnn_states, masks, seq)
         return self.act(x), rnn_states
+
+
+class StochasticMlpPolicy(nn.Module):
+    """Discrete HASAC's policy (stochastic_mlp_policy.py): MLPBase →
+    ACTLayer, no GRU and no masks. ``forward(obs)`` → the head's outputs,
+    ``(logits,)`` for a Discrete space."""
+
+    def __init__(self, obs_dim: int, action_space, hidden_sizes: Sequence[int] = (128, 128),
+                 activation_func: str = "relu", use_feature_normalization: bool = True,
+                 initialization_method: str = "orthogonal_", gain: float = 0.01,
+                 device=None, generator=None):
+        super().__init__()
+        self.base = MLPBase(obs_dim, hidden_sizes, activation_func,
+                            use_feature_normalization, initialization_method,
+                            device, generator)
+        self.act = ACTLayer(hidden_sizes[-1], action_space, initialization_method,
+                            gain, device=device, generator=generator)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.act(self.base(obs))
 
 
 class SquashedGaussianPolicy(nn.Module):

@@ -3,7 +3,7 @@
 ``VNet``: MLPBase → optional GRU → scalar head with the configured init at
 gain 1.0 (v_net.py:41-44). The CNN path is on the roadmap.
 ``ContinuousQNet``: Q(s, joint action) on a PlainMLP, for the off-policy
-critics.
+critics. ``DuelingQNet``: HAD3QN's per-agent Q(o, ·) and joint Q(s, ·).
 """
 from __future__ import annotations
 
@@ -59,3 +59,30 @@ class ContinuousQNet(nn.Module):
 
     def forward(self, cent_obs: torch.Tensor, joint_actions: torch.Tensor) -> torch.Tensor:
         return self.mlp(torch.cat([cent_obs, joint_actions], dim=-1))
+
+
+class DuelingQNet(nn.Module):
+    """Dueling Q network (dueling_q_net.py): a PlainMLP torso, then a value
+    head V (→ 1) and an advantage head A (→ ``output_dim``), each a PlainMLP
+    ending without an activation; Q = A − mean(A) + V."""
+
+    def __init__(self, in_dim: int, output_dim: int,
+                 base_hidden_sizes: Sequence[int] = (128, 128),
+                 base_activation_func: str = "relu",
+                 dueling_v_hidden_sizes: Sequence[int] = (128,),
+                 dueling_v_activation_func: str = "hardswish",
+                 dueling_a_hidden_sizes: Sequence[int] = (128,),
+                 dueling_a_activation_func: str = "hardswish", device=None, generator=None):
+        super().__init__()
+        self.base = PlainMLP(in_dim, tuple(base_hidden_sizes), base_activation_func,
+                             base_activation_func, device, generator)
+        h = base_hidden_sizes[-1]
+        self.dueling_v = PlainMLP(h, tuple(dueling_v_hidden_sizes) + (1,),
+                                  dueling_v_activation_func, "identity", device, generator)
+        self.dueling_a = PlainMLP(h, tuple(dueling_a_hidden_sizes) + (output_dim,),
+                                  dueling_a_activation_func, "identity", device, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = self.base(obs)
+        a = self.dueling_a(x)
+        return a - a.mean(dim=-1, keepdim=True) + self.dueling_v(x)

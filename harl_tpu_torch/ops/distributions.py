@@ -11,10 +11,12 @@ The on-policy heads are ported:
   sampling takes standard-normal noise as an argument.
 
 * ``squashed_gaussian_sample``, HASAC's tanh-squashed Gaussian
-  (distributions.py:120-147), with the standard-normal draw passed in.
+  (distributions.py:120-147), with the standard-normal draw passed in;
+* ``gumbel_softmax`` (straight-through, ``hard=True``) and
+  ``onehot_from_logits``, discrete HASAC's sample and mode
+  (distributions.py:154-166), with the standard Gumbel draw passed in.
 
-So a caller (or a test) decides where the noise comes from. The ST-Gumbel
-of discrete HASAC is on the roadmap.
+So a caller (or a test) decides where the noise comes from.
 """
 from __future__ import annotations
 
@@ -125,3 +127,20 @@ def squashed_gaussian_sample(mu: torch.Tensor, log_std: torch.Tensor,
     correction = 2.0 * (math.log(2.0) - pre - F.softplus(-2.0 * pre))
     logp = logp - correction.sum(dim=-1, keepdim=True)
     return SquashedGaussianSample(torch.tanh(pre) * act_limit, logp)
+
+
+def onehot_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax as a one-hot row of ``logits``' dtype (discrete_util.py:8-16)."""
+    return F.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1]).to(logits.dtype)
+
+
+def gumbel_softmax(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float = 1.0,
+                   hard: bool = True) -> torch.Tensor:
+    """softmax((logits + g)/temperature) for standard Gumbel ``gumbel`` of
+    logits' shape; with ``hard``, the straight-through one-hot
+    ``y_hard + y − stop_gradient(y)``: the argmax forward, softmax's
+    gradient backward (discrete_util.py:44-59)."""
+    y = torch.softmax((logits + gumbel) / temperature, dim=-1)
+    if hard:
+        y = onehot_from_logits(y) + y - y.detach()
+    return y

@@ -1,5 +1,5 @@
 """Off-policy HARL runner (counterpart of ``harl_tpu/runners/off_policy.py``):
-HASAC, HADDPG, HATD3, MADDPG and MATD3 on one replay buffer.
+HASAC, HADDPG, HATD3, HAD3QN, MADDPG and MATD3 on one replay buffer.
 
   warmup_block  — ``warmup_steps // n_rollout_threads`` steps of uniform
                   random actions, inserted into the replay buffer;
@@ -7,15 +7,19 @@ HASAC, HADDPG, HATD3, MADDPG and MATD3 on one replay buffer.
   train_block   — ``update_per_train × train_interval`` updates, each: an
                   n-step sample, the critic's TD step, and every
                   ``policy_freq`` updates the actors (sequential in random or
-                  fixed order for HA algorithms, simultaneous against the
-                  buffer's actions for MA ones) and the polyak target updates.
+                  fixed order for HA algorithms, HAD3QN's a coordinate
+                  descent on the joint critic's argmax; simultaneous against
+                  the buffer's actions for MA ones) and the polyak target
+                  updates.
 
 Each block updates the state in place and returns it, with its metrics as
 tensors on the device; no block waits on the device. Insert bookkeeping
 (off_policy_base_runner.py:353-442): valid = 1 − agent deaths before the
 step, terms = env done ∧ ¬truncation, next obs and state at an episode end
 are the pre-reset ones (``Transition.final``), the EP reward is agent 0's,
-and the episode return adds the mean reward over agents.
+and the episode return adds the mean reward over agents. Under discrete
+actions each agent's availability before and after the step is kept too:
+HASAC masks its logits with it, HAD3QN reads none.
 
 ``run`` is the training loop around them: the warmup, then collect and
 train blocks, a log record (with an evaluation under ``use_eval``) every
@@ -23,8 +27,8 @@ train blocks, a log record (with an evaluation under ``use_eval``) every
 intervals, keeping the newest two (the state holds the replay buffer), and a
 resume from ``model_dir``.
 
-Ported: the EP state, Box actions, pure-tensor envs. FP states,
-``share_param``, HAD3QN, discrete actions, host envs and meshes raise
+Ported: the EP state, Box and Discrete actions, pure-tensor envs. FP
+states, ``share_param``, MultiDiscrete actions, host envs and meshes raise
 ``NotImplementedError`` naming their roadmap item.
 
 Randomness comes from one ``torch.Generator`` per runner on its device, and
@@ -32,21 +36,26 @@ one on the host for the agent orders, both seeded by ``init_state(seed)``,
 through a noise source (``utils/noise.py``). Its draws, in order:
 
   init_state      the env reset;
-  warmup, a step  ``uniform((B, d_i))`` per agent, then the env's reset draws;
-  collect, a step ``action_noise((B, d_i))`` per agent, then the env's reset draws;
+  warmup, a step  per agent ``uniform((B, d_i))`` (Box) or ``randint((B, 1), n_i)``
+                  (Discrete), then the env's reset draws;
+  collect, a step per agent its exploration draws, then the env's reset draws:
+                  ``action_noise((B, d_i))`` (Box), HASAC's
+                  ``gumbel_noise((B, n_i))`` (Discrete), HAD3QN's
+                  ``randint((B, 1), n_i)`` and ``uniform((B, 1))``;
   train, an update
                   ``indices(batch_size, rows written)``; the next-action
-                  normals (HASAC) or target smoothing normals (HATD3, MATD3)
-                  ``(batch, d_i)`` in agent order; then, on a policy step,
-                  HASAC's initial-action normals in agent order, the agent
-                  permutation (HA algorithms, unless ``fixed_order``), and
-                  HASAC's normal of agent i in update order, used both for
+                  draws of HASAC (normals (batch, d_i), or Gumbels
+                  (batch, n_i)) or target smoothing normals (HATD3, MATD3)
+                  in agent order; then, on a policy step, HASAC's
+                  initial-action draws in agent order, the agent permutation
+                  (HA algorithms and HAD3QN, unless ``fixed_order``), and
+                  HASAC's draw of agent i in update order, used both for
                   its loss and for its action after its step.
 
-HADDPG draws nothing in an update but the indices and the permutation;
-MADDPG draws only the indices. Evaluation draws from a generator of its own,
-seeded from the run's seed and the round (``runners/common.py``): the eval
-envs' reset, then each step's reset draws.
+HADDPG and HAD3QN draw nothing in an update but the indices and the
+permutation; MADDPG draws only the indices. Evaluation draws from a
+generator of its own, seeded from the run's seed and the round
+(``runners/common.py``): the eval envs' reset, then each step's reset draws.
 """
 from __future__ import annotations
 
@@ -58,9 +67,9 @@ from typing import Any, List, NamedTuple, Optional
 import torch
 
 from harl_tpu_torch.algos.common import adam, soft_update
-from harl_tpu_torch.algos.off_policy_actors import (HADDPGActor, HASACActor, HATD3Actor,
-                                                    OffPolicyAgentState)
-from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, QCriticState,
+from harl_tpu_torch.algos.off_policy_actors import (HAD3QNActor, HADDPGActor, HASACActor,
+                                                    HATD3Actor, OffPolicyAgentState)
+from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, DiscreteQCritic, QCriticState,
                                             SoftTwinContinuousQCritic, TwinContinuousQCritic)
 from harl_tpu_torch.buffers.off_policy import FP_TODO, ReplayBuffer, Sample
 from harl_tpu_torch.envs import make_env
@@ -71,10 +80,10 @@ from harl_tpu_torch.utils.device import DeviceLike, resolve_device
 from harl_tpu_torch.utils.noise import GeneratorNoise
 
 ACTOR_REGISTRY = {"haddpg": HADDPGActor, "hatd3": HATD3Actor, "hasac": HASACActor,
-                  "maddpg": HADDPGActor, "matd3": HATD3Actor}
+                  "had3qn": HAD3QNActor, "maddpg": HADDPGActor, "matd3": HATD3Actor}
 CRITIC_REGISTRY = {"haddpg": ContinuousQCritic, "maddpg": ContinuousQCritic,
                    "hatd3": TwinContinuousQCritic, "matd3": TwinContinuousQCritic,
-                   "hasac": SoftTwinContinuousQCritic}
+                   "hasac": SoftTwinContinuousQCritic, "had3qn": DiscreteQCritic}
 MA_ALGOS = ("maddpg", "matd3")          # simultaneous updates with buffer actions
 SMOOTHED = ("hatd3", "matd3")           # target smoothing noise
 # envs the JAX package steps on the host (real MuJoCo, GRF)
@@ -86,6 +95,7 @@ class OffRolloutCarry(NamedTuple):
     env_state: Any
     obs: torch.Tensor            # (B, N, max_obs)
     share_obs: torch.Tensor      # (B, ds)
+    avail: Optional[torch.Tensor]  # (B, N, max n_i) under discrete actions, else None
     agent_deaths: torch.Tensor   # (B, N, 1)
     ep_ret: torch.Tensor         # (B,)
 
@@ -109,9 +119,6 @@ class OffPolicyRunner:
         self.device = resolve_device(device)
         self.args, self.algo_args, self.env_args = args, algo_args, env_args
         self.algo = args["algo"]
-        if self.algo == "had3qn":
-            raise NotImplementedError(f"had3qn (DuelingQNet, DiscreteQCritic) is not "
-                                      f"ported yet {TODO}")
         if self.algo not in ACTOR_REGISTRY:
             raise NotImplementedError(f"off-policy algo {self.algo!r} is unknown")
         tr, al, md = algo_args["train"], algo_args["algo"], algo_args["model"]
@@ -150,15 +157,19 @@ class OffPolicyRunner:
 
         cfg = {**al, **md, "use_proper_time_limits": self.use_proper_time_limits,
                "use_valuenorm": tr.get("use_valuenorm", False)}
-        # the actors refuse discrete action spaces
+        # MultiDiscrete spaces raise here, naming their roadmap item
         self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
                                                  self.device)
                        for i in range(self.n_agents)]
+        self.discrete = self.actors[0].kind == "Discrete"
         self.act_dims = [actor.act_dim for actor in self.actors]
         self.critic = CRITIC_REGISTRY[self.algo](self.share_obs_dim, self.act_spaces, cfg,
                                                  self.device)
-        # HASAC's target entropy per agent: −dim of its Box
-        self.target_entropy = [-float(d) for d in self.act_dims]
+        # HASAC's target entropy per agent: −dim of a Box, −0.98·log(1/n) of
+        # a Discrete space (off_policy.py:175-187)
+        self.target_entropy = [-float(actor.act_dim) if actor.kind == "Box"
+                               else -0.98 * math.log(1.0 / actor.action_space.n)
+                               for actor in self.actors]
         self.generator = torch.Generator(device=self.device)
         self.host_generator = torch.Generator()
         self.noise = noise if noise is not None else GeneratorNoise(
@@ -181,9 +192,11 @@ class OffPolicyRunner:
             actors.append(st)
         critic = self.critic.init(self.generator)
         buf = ReplayBuffer(self.buffer_size, self.share_obs_dim, self.obs_dims, self.act_dims,
-                           self.device)
+                           self.device, [sp.n for sp in self.act_spaces] if self.discrete
+                           else None)
         B, N = self.n_rollout_threads, self.n_agents
         carry = OffRolloutCarry(env_state=env_state, obs=ts.obs, share_obs=ts.share_obs,
+                                avail=ts.available_actions,
                                 agent_deaths=torch.zeros((B, N, 1), device=self.device),
                                 ep_ret=torch.zeros(B, device=self.device))
         return OffPolicyState(actors, critic, buf, carry)
@@ -198,20 +211,25 @@ class OffPolicyRunner:
     def _obs_i(self, obs: torch.Tensor, i: int) -> torch.Tensor:
         return obs[:, i, : self.obs_dims[i]]
 
+    def _avail_i(self, avail: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
+        """Agent i's availability (B, n_i), or None (Box actions)."""
+        if avail is None or self.actors[i].kind != "Discrete":
+            return None
+        return avail[:, i, : self.act_spaces[i].n]
+
     def _env_actions(self, actors: List[OffPolicyAgentState], carry: OffRolloutCarry):
-        """Every agent's exploration action: (stacked (B, N, d), per agent)."""
+        """Every agent's exploration action: (stacked (B, N, max d), per agent)."""
         B = self.n_rollout_threads
-        acts = []
-        for i, actor in enumerate(self.actors):
-            eps = self.noise.action_noise((B, self.act_dims[i]))
-            acts.append(actor.get_actions(actors[i].net, self._obs_i(carry.obs, i), eps))
-        return torch.stack(acts, dim=1), acts
+        acts = [actor.get_actions(actors[i].net, self._obs_i(carry.obs, i),
+                                  actor.explore_noise(self.noise, B),
+                                  self._avail_i(carry.avail, i))
+                for i, actor in enumerate(self.actors)]
+        return common.stack_actions(acts), acts
 
     def _random_actions(self):
-        B = self.n_rollout_threads
-        acts = [actor.random_actions(self.noise.uniform((B, self.act_dims[i])))
-                for i, actor in enumerate(self.actors)]
-        return torch.stack(acts, dim=1), acts
+        acts = [actor.random_actions(self.noise, self.n_rollout_threads)
+                for actor in self.actors]
+        return common.stack_actions(acts), acts
 
     def _env_step_insert(self, state: OffPolicyState, stacked: torch.Tensor,
                          acts: List[torch.Tensor]):
@@ -225,7 +243,7 @@ class OffPolicyRunner:
         valid = 1.0 - carry.agent_deaths                                       # (B, N, 1)
         new_deaths = torch.where(done_env[:, :, None] > 0, 0.0,
                                  final.dones[..., None].to(torch.float32))
-        state.buffer.insert(dict(
+        batch = dict(
             share_obs=carry.share_obs,
             obs=[self._obs_i(carry.obs, i) for i in range(N)],
             actions=acts,
@@ -234,11 +252,17 @@ class OffPolicyRunner:
             valid_transitions=[valid[:, i] for i in range(N)],
             terms=terms,
             next_share_obs=final.share_obs,
-            next_obs=[self._obs_i(final.obs, i) for i in range(N)]))
+            next_obs=[self._obs_i(final.obs, i) for i in range(N)])
+        if state.buffer.available_actions is not None:
+            batch.update(
+                available_actions=[self._avail_i(carry.avail, i) for i in range(N)],
+                next_available_actions=[self._avail_i(final.available_actions, i)
+                                        for i in range(N)])
+        state.buffer.insert(batch)
         done = done_env[:, 0] > 0
         ep_ret = carry.ep_ret + final.rewards[:, :, 0].mean(dim=1)
         state.carry = OffRolloutCarry(env_state=tr.state, obs=ts.obs, share_obs=ts.share_obs,
-                                      agent_deaths=new_deaths,
+                                      avail=ts.available_actions, agent_deaths=new_deaths,
                                       ep_ret=torch.where(done, 0.0, ep_ret))
         return torch.where(done, ep_ret, 0.0), done.to(torch.float32), final.rewards.mean()
 
@@ -281,13 +305,19 @@ class OffPolicyRunner:
             with torch.no_grad():
                 next_acts, next_logps = [], []
                 for i, actor in enumerate(self.actors):
-                    eps = self.noise.action_noise((self.batch_size, self.act_dims[i]))
-                    a, lp = actor.get_actions_with_logprobs(actors[i].net, sp.next_obs[i], eps)
+                    a, lp = actor.get_actions_with_logprobs(
+                        actors[i].net, sp.next_obs[i], actor.draw(self.noise, self.batch_size),
+                        _at(sp.next_available_actions, i))
                     next_acts.append(a)
                     next_logps.append(lp)
                 next_logp = torch.cat(next_logps, dim=-1).sum(dim=-1, keepdim=True)
             loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1), next_logp,
                                      self._alpha(state.critic))
+        elif self.algo == "had3qn":
+            with torch.no_grad():
+                next_acts = [actor.get_target_actions(actors[i].target, sp.next_obs[i])
+                             for i, actor in enumerate(self.actors)]
+            loss = self.critic.train(state.critic, sp, next_acts)
         else:
             with torch.no_grad():
                 next_acts = []
@@ -305,6 +335,8 @@ class OffPolicyRunner:
     def _policy_update(self, state: OffPolicyState, sp: Sample) -> None:
         if self.algo == "hasac":
             self._hasac_update(state, sp)
+        elif self.algo == "had3qn":
+            self._had3qn_update(state, sp)
         elif self.algo in MA_ALGOS:
             self._ma_update(state, sp)
         else:
@@ -357,15 +389,17 @@ class OffPolicyRunner:
         actors, B = state.actors, self.batch_size
         with torch.no_grad():
             init = [self.actors[i].get_actions_with_logprobs(
-                st.net, sp.obs[i], self.noise.action_noise((B, self.act_dims[i])))
+                st.net, sp.obs[i], self.actors[i].draw(self.noise, B),
+                _at(sp.available_actions, i))
                 for i, st in enumerate(actors)]
         actions = [a for a, _ in init]
         logps = [lp for _, lp in init]
         for i in self._order():
             actor, st = self.actors[i], actors[i]
             alpha_i = self._alpha(st)
-            eps_i = self.noise.action_noise((B, self.act_dims[i]))   # loss and re-sample
-            a_i, lp_i = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i)
+            avail_i = _at(sp.available_actions, i)
+            eps_i = actor.draw(self.noise, B)   # loss and re-sample
+            a_i, lp_i = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i, avail_i)
             q = self.critic.get_values(state.critic, sp.share_obs, self._joint(actions, i, a_i))
             obj = q - alpha_i * lp_i.sum(dim=-1, keepdim=True)
             if self.use_policy_active_masks:
@@ -383,10 +417,30 @@ class OffPolicyRunner:
                 with torch.no_grad():
                     st.log_alpha.clamp_(-16.0, 2.0)
             with torch.no_grad():
-                actions[i], logps[i] = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i)
+                actions[i], logps[i] = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i,
+                                                                       avail_i)
         if self.auto_alpha:
             logp_sum = torch.cat(logps, dim=-1).sum(dim=-1, keepdim=True)
             self.critic.update_alpha(state.critic, logp_sum, float(sum(self.target_entropy)))
+
+    def _had3qn_update(self, state: OffPolicyState, sp: Sample) -> None:
+        """Coordinate descent on the joint critic's argmax
+        (off_policy_ha_runner.py:174-205): each agent in turn regresses its
+        Q(o, aᵢ) onto the critic's Q(s, a) at the current joint action, then
+        takes the argmax of the critic over its own actions, the others held."""
+        critic = self.critic
+        with torch.no_grad():
+            all_values = critic.q_all(state.critic.nets, sp.share_obs)
+            actions = [actor.get_actions(st.net, sp.obs[i])
+                       for i, (actor, st) in enumerate(zip(self.actors, state.actors))]
+        for i in self._order():
+            actor, st = self.actors[i], state.actors[i]
+            critic_values = torch.take_along_dim(all_values, critic.indiv_to_joint(actions),
+                                                 dim=-1)
+            av = actor.train_values(st.net, sp.obs[i], actions[i])
+            self._step_actor(st, ((av - critic_values) ** 2).mean())
+            vals = torch.take_along_dim(all_values, critic.get_joint_idx(actions, i), dim=-1)
+            actions[i] = torch.argmax(vals, dim=-1, keepdim=True)
 
     # ------------------------------------------------------------------ eval
     def eval_noise(self, round_idx: int):
@@ -400,7 +454,8 @@ class OffPolicyRunner:
         return, episodes ended, {metric: sum}) as tensors."""
         def act(obs, avail, masks, rnn):
             return common.stack_actions([
-                actor.deterministic_actions(state.actors[i].net, self._obs_i(obs, i))
+                actor.deterministic_actions(state.actors[i].net, self._obs_i(obs, i),
+                                            self._avail_i(avail, i))
                 for i, actor in enumerate(self.actors)]), None
 
         return common.eval_rollout(self.env, n_eval_envs, self._eval_len(),
@@ -494,3 +549,7 @@ class OffPolicyRunner:
                     checkpoint.save_state(save_dir, self.checkpoint(state), steps)
                     checkpoint.prune_checkpoints(save_dir, keep=2)
         return state, history
+
+
+def _at(per_agent: Optional[List[torch.Tensor]], i: int) -> Optional[torch.Tensor]:
+    return None if per_agent is None else per_agent[i]

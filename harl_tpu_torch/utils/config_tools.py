@@ -24,10 +24,10 @@ def get_defaults_yaml_args(algo: str, env: str) -> Tuple[Dict, Dict]:
     for path in (algo_path, env_path):
         if not path.exists():
             raise NotImplementedError(
-                f"{path.name}: the port ships happo.yaml, hatrpo.yaml, haa2c.yaml, "
-                "mappo.yaml, hasac.yaml, haddpg.yaml, hatd3.yaml, maddpg.yaml, matd3.yaml, "
-                "mamujoco_jax.yaml and smaclite.yaml so far (ROADMAP.md, Queue A: had3qn "
-                "and the remaining pure-JAX envs)"
+                f"{path.name}: the port ships the YAMLs of all ten algorithms (happo, "
+                "hatrpo, haa2c, mappo, hasac, haddpg, hatd3, had3qn, maddpg, matd3) and of "
+                "mamujoco_jax, pettingzoo_mpe and smaclite so far (ROADMAP.md, Queue A: the "
+                "remaining pure-JAX envs)"
             )
     with open(algo_path) as f:
         algo_args = yaml.safe_load(f)

@@ -8,9 +8,12 @@ imports JAX. A flax ``Dense.kernel`` is (in, out) and a torch
 (``rnn/wi{i}``, ``wh{i}``, ``bi{i}``, ``bh{i}``) keep the flax layout and copy
 as they are, its output LayerNorm is ``rnn/norm``. Covers ``StochasticPolicy``
 (MLP, optional GRU, Box or Discrete head) and ``VNet`` (MLP, optional GRU),
-and the off-policy networks on ``PlainMLP`` (``fc{i}`` → ``fc.{i}``):
+the off-policy networks on ``PlainMLP`` (``fc{i}`` → ``fc.{i}``):
 ``SquashedGaussianPolicy``, ``DeterministicPolicy`` and ``ContinuousQNet``,
-the last also as a tuple of twin nets.
+the last also as a tuple of twin nets, and HAD3QN's ``DuelingQNet`` (alone,
+or as the critic's tuple of one). Discrete HASAC's ``StochasticMlpPolicy``
+has ``StochasticPolicy``'s names (``base``, ``act/head``), so
+``policy_state_dict`` converts it.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ def _params(tree: Mapping) -> Mapping:
 
 
 def policy_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``StochasticPolicy`` parameters: MLP, optional GRU, Box or Discrete head."""
+    """``StochasticPolicy`` parameters: MLP, optional GRU, Box or Discrete
+    head; also ``StochasticMlpPolicy``'s (MLP, Discrete head)."""
     p = _params(flax_params)
     out = _mlp_base(p["base"])
     if "rnn" in p:
@@ -104,8 +108,18 @@ def q_net_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     return plain_mlp_state_dict(_params(flax_params)["mlp"], "mlp.")
 
 
-def q_nets_state_dict(flax_params: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
-    """A tuple of ``ContinuousQNet`` parameters (one, or twins) → the
-    ``state_dict`` of an ``nn.ModuleList`` of them."""
-    return {f"{i}.{k}": v for i, p in enumerate(flax_params)
-            for k, v in q_net_state_dict(p).items()}
+def dueling_q_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``DuelingQNet``: {"base", "dueling_v", "dueling_a"}, each a PlainMLP."""
+    p = _params(flax_params)
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("base", "dueling_v", "dueling_a"):
+        out.update(plain_mlp_state_dict(p[name], f"{name}."))
+    return out
+
+
+def q_nets_state_dict(flax_params: Sequence[Mapping],
+                      net=q_net_state_dict) -> Dict[str, torch.Tensor]:
+    """A tuple of Q-net parameters (one, or twins) → the ``state_dict`` of an
+    ``nn.ModuleList`` of them; ``net`` converts one (``ContinuousQNet``
+    unless given, e.g. ``dueling_q_state_dict``)."""
+    return {f"{i}.{k}": v for i, p in enumerate(flax_params) for k, v in net(p).items()}

@@ -153,3 +153,86 @@ def test_cli_hatrpo_iteration_on_the_card(device, tmp_path):
     assert torch.isfinite(torch.tensor(rec["value_loss"]))
     assert len(rec["agent_stats"]) == 5
     assert (run / "models" / "ckpt_80" / "state.pt").exists()
+
+
+def _same_draws(spec, X, g, envs):
+    """One set of reset draws, made on the CPU, handed to every env's device."""
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    draws = GeneratorNoise(g, "cpu").reset_noise(X, spec)
+    return [tuple(d.to(e.device) for d in draws) for e in envs]
+
+
+MPE_CASES = [(s, c) for s in ("simple_spread_v2", "simple_reference_v2",
+                              "simple_speaker_listener_v3") for c in (True, False)]
+
+
+@pytest.mark.parametrize("scenario,continuous", MPE_CASES)
+def test_mpe_steps_on_the_card_match_the_cpu(device, scenario, continuous):
+    """30 auto-reset steps of 64 envs with the same actions and reset draws
+    on both devices, through the truncation at max_cycles: obs, share_obs
+    and rewards at rtol 1e-5, atol 1e-6; dones, truncations and
+    availability equal."""
+    from harl_tpu_torch.envs import core, make_env
+
+    envs = [make_env("pettingzoo_mpe", {"scenario": scenario, "continuous_actions": continuous},
+                     device=d) for d in ("cpu", device)]
+    g, X = torch.Generator().manual_seed(0), 64
+    out = [e.reset(d) for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+    states = [o[0] for o in out]
+    ends = 0
+    for _ in range(30):
+        if continuous:
+            a = torch.rand((X, envs[0].n_agents, envs[0].max_action_n), generator=g)
+        else:
+            a = torch.stack([torch.randint(0, sp.n, (X, 1), generator=g)
+                             for sp in envs[0].action_space], dim=1)
+        trs = [core.auto_reset_step(e, s, a.to(e.device), d) for e, s, d in
+               zip(envs, states, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+        t_cpu, t_gpu = trs[0].ts, trs[1].ts
+        for k in ("obs", "share_obs", "rewards"):
+            torch.testing.assert_close(getattr(t_gpu, k).cpu(), getattr(t_cpu, k),
+                                       rtol=1e-5, atol=1e-6)
+        for k in ("dones", "bad_transition") + (() if continuous else ("available_actions",)):
+            assert torch.equal(getattr(t_gpu, k).cpu(), getattr(t_cpu, k)), k
+        ends += int(t_cpu.dones.all(dim=1).sum())
+        states = [tr.state for tr in trs]
+    assert ends == X
+
+
+@pytest.mark.parametrize("scenario,dof", [("Walker2d-v2", 9), ("Hopper-v2", 6)])
+def test_planar_termination_on_the_card_matches_the_cpu(device, scenario, dof):
+    """12 auto-reset steps of 32 envs, half of them tipped over so that they
+    terminate unhealthy (dones without truncation) before the truncation at
+    step 8: the state and the observations at the planar tolerances (rtol
+    1e-4, atol 2e-4), the flags equal."""
+    from harl_tpu_torch.envs import core, make_env
+
+    env_args = {"scenario": scenario, "episode_limit": 8}
+    envs = [make_env("mamujoco_jax", env_args, device=d) for d in ("cpu", device)]
+    g, X = torch.Generator().manual_seed(1), 32
+    states = [e.reset(d)[0] for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g,
+                                                              envs))]
+    tip = torch.zeros((X, dof))
+    tip[::2, 2] = 0.97 if scenario == "Walker2d-v2" else 0.19
+    rate = 4.0 if scenario == "Walker2d-v2" else 2.0
+    states = [s._replace(q=s.q + tip.to(s.q.device), qd=s.qd + rate * (tip != 0).to(s.q.device))
+              for s in states]
+    width = max(sp.dim for sp in envs[0].action_space)
+    terminated = 0
+    for _ in range(12):
+        a = (torch.rand((X, envs[0].n_agents, width), generator=g) - 0.5) * 0.6
+        trs = [core.auto_reset_step(e, s, a.to(e.device), d) for e, s, d in
+               zip(envs, states, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+        (c, gpu) = trs
+        for k in ("q", "qd"):
+            torch.testing.assert_close(getattr(gpu.state, k).cpu(), getattr(c.state, k),
+                                       rtol=1e-4, atol=2e-4)
+        for k in ("obs", "share_obs", "rewards"):
+            torch.testing.assert_close(getattr(gpu.ts, k).cpu(), getattr(c.ts, k),
+                                       rtol=1e-4, atol=2e-4)
+        for k in ("dones", "bad_transition"):
+            assert torch.equal(getattr(gpu.ts, k).cpu(), getattr(c.ts, k)), k
+        terminated += int((c.ts.dones[:, 0] & ~c.ts.bad_transition).sum())
+        states = [tr.state for tr in trs]
+    assert terminated >= X // 2

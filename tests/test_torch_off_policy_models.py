@@ -131,7 +131,7 @@ def test_plain_mlp_init_statistics():
     assert float(tnet.fc[1].bias.detach().abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("algo", ["hasac", "haddpg", "hatd3", "maddpg", "matd3"])
+@pytest.mark.parametrize("algo", ["hasac", "haddpg", "hatd3", "maddpg", "matd3", "had3qn"])
 def test_off_policy_yaml_copies_match(algo):
     port, _ = get_defaults_yaml_args(algo, "mamujoco_jax")
     ref, _ = jdefaults(algo, "mamujoco_jax")

@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from harl_tpu_torch.algos.off_policy_actors import HASACActor
 from harl_tpu_torch.ops import gae_kernels
 from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.runners.on_policy import OnPolicyRunner
@@ -63,7 +64,7 @@ def test_imports_no_jax_and_no_harl_tpu():
 def test_off_policy_modules_import_without_jax():
     names = _import_walk()
     for name in ("buffers.off_policy", "algos.q_critics", "algos.off_policy_actors",
-                 "runners.off_policy"):
+                 "runners.off_policy", "envs.mpe.mpe", "envs.mamujoco_jax.planar"):
         assert f"harl_tpu_torch.{name}" in names, names
 
 
@@ -219,13 +220,28 @@ def test_off_policy_unported_options_raise():
         OffPolicyRunner(hasac, shared, env_args, device="cpu")
     with pytest.raises(NotImplementedError, match="FP.*ROADMAP"):
         OffPolicyRunner(hasac, algo_args, dict(env_args, state_type="FP"), device="cpu")
-    with pytest.raises(NotImplementedError, match="had3qn.*ROADMAP"):
-        OffPolicyRunner({"algo": "had3qn", "env": "mamujoco_jax"}, algo_args, env_args,
-                        device="cpu")
-    # discrete HASAC: SMACLite's Discrete actions
-    with pytest.raises(NotImplementedError, match="Discrete.*ROADMAP"):
-        OffPolicyRunner({"algo": "hasac", "env": "smaclite"}, algo_args,
-                        {"map_name": "3m"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="MultiDiscrete heads"):
+        HASACActor(4, type("MultiDiscrete", (), {"nvec": (2, 3)})(), algo_args["model"] | {
+            "lr": 1e-3, "polyak": 0.005})
+    # HAD3QN and discrete HASAC, refused before, run: on MPE, and discrete
+    # HASAC on SMACLite's EP state
+    for algo, env, env_args_d in (("had3qn", "pettingzoo_mpe",
+                                   {"scenario": "simple_spread_v2", "continuous_actions": False,
+                                    "max_cycles": 3}),
+                                  ("hasac", "pettingzoo_mpe",
+                                   {"scenario": "simple_reference_v2",
+                                    "continuous_actions": False, "max_cycles": 3}),
+                                  ("hasac", "smaclite", {"map_name": "3m", "episode_limit": 3})):
+        d_args, _ = get_defaults_yaml_args(algo, "pettingzoo_mpe")
+        d_args["train"].update(n_rollout_threads=3, warmup_steps=6, train_interval=2)
+        d_args["algo"].update(batch_size=8, buffer_size=50)
+        d_args["model"].update(hidden_sizes=[8, 8])
+        runner = OffPolicyRunner({"algo": algo, "env": env}, d_args, env_args_d, device="cpu")
+        state = runner.warmup_block(runner.init_state(0))
+        state, cm = runner.collect_block(state)
+        state, tm = runner.train_block(state)
+        assert runner.discrete and state.buffer.available_actions is not None
+        assert math.isfinite(float(tm["critic_loss"])) and state.total_it == 2
     with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
         OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,
                         device="cpu")

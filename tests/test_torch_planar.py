@@ -1,4 +1,5 @@
-"""Port parity: planar HalfCheetah-6x1 and the auto-reset env core.
+"""Port parity: planar HalfCheetah-6x1, Walker2d and Hopper, and the
+auto-reset env core.
 
 The JAX env is vmapped over a small batch; the port steps the same batch
 as one tensor. Both start from the same state and take the same actions.
@@ -132,9 +133,99 @@ def test_gauss_solve_matches_linalg():
 
 
 def test_unported_envs_raise():
-    with pytest.raises(NotImplementedError):
-        make_env("pettingzoo_mpe", {}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_env("mamujoco_jax", {"scenario": "Walker2d-v2"}, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_env("football_jax", {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_env("mamujoco_jax", {"scenario": "Ant-v2"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env("mamujoco_jax", {"scenario": "manyagent_swimmer"}, device="cpu")
+    # ported since: Walker2d and Hopper, with their JAX defaults
+    assert make_env("mamujoco_jax", {"scenario": "Walker2d-v2"}, device="cpu").n_agents == 2
+    assert make_env("mamujoco_jax", {"scenario": "Hopper-v2"}, device="cpu").n_agents == 3
+
+
+# ------------------------------------------------------ Walker2d and Hopper
+# (scenario, agent_conf, dof, pitch that starts envs falling, its rate)
+FALLERS = [("Walker2d-v2", "2x3", 9, 0.97, 4.0), ("Hopper-v2", "3x1", 6, 0.19, 2.0)]
+
+
+@pytest.mark.parametrize("scenario,conf,dof,pitch,rate", FALLERS,
+                         ids=[f[0] for f in FALLERS])
+def test_termination_and_auto_reset_match_jax(scenario, conf, dof, pitch, rate):
+    """From the JAX reset (uniform qpos and qvel noise, replayed), half the
+    envs are tipped over: they terminate unhealthy (``dones`` without
+    ``bad_transition``) and auto-reset, the others run to the truncation at
+    the limit (both flags). The state, obs, reward and flags stay equal on
+    every step, the healthy reward included. Walker2d's stiffer contacts
+    (20000 N/m at dt 0.002) round worse than the cheetah's: one env step from
+    a random state leaves the JAX env itself ~3e-3 from a float64 step, so
+    the run is kept to 12 steps at the cheetah's tolerances."""
+    limit, steps = 8, 12
+    env_args = {"scenario": scenario, "agent_conf": conf, "episode_limit": limit}
+    jenv = jmake(env_args)
+    tenv = make_env("mamujoco_jax", env_args, device="cpu")
+    assert tenv.reset_noise_spec == (("uniform", dof), ("uniform", dof))
+    keys = jax.random.split(jax.random.PRNGKey(11), X)
+    jstate, jts = jax.vmap(jenv.reset)(keys)
+    tstate, tts = tenv.reset(tuple(_t(x) for x in reset_noise(keys, dof, qvel_normal=False)))
+    _close(tstate.q, jstate.q, 1e-6, 1e-7)
+    _close(tstate.qd, jstate.qd, 1e-6, 1e-7)
+    _close(tts.obs, jts.obs, 1e-5, 1e-5)
+    assert float(tstate.qd.abs().max()) <= 5e-3      # uniform, not normal
+    tip = np.zeros((X, dof), np.float32)
+    tip[::2, 2] = pitch
+    q = jstate.q + tip
+    qd = jstate.qd + np.where(tip != 0, rate, 0.0).astype(np.float32)
+    jstate = jstate._replace(q=q, qd=qd)
+    tstate = PlanarState(_t(q), _t(qd), tstate.t)
+    rng = np.random.default_rng(7)
+    n_agents, width = tenv.n_agents, max(sp.dim for sp in tenv.action_space)
+    vec = jcore.VecEnv(jenv, X)
+    terminated = truncated = 0
+    for k in range(steps):
+        a = rng.uniform(-0.3, 0.3, (X, n_agents, width)).astype(np.float32)
+        k_env = jax.random.fold_in(jax.random.PRNGKey(5), k)
+        jtr = vec.step(jstate, jnp.asarray(a), k_env)
+        ttr = tcore.auto_reset_step(
+            tenv, tstate, _t(a), tuple(_t(x) for x in step_reset_noise(k_env, X, dof, False)))
+        for name in ("q", "qd"):
+            _close(getattr(ttr.state, name), getattr(jtr.state, name))
+        np.testing.assert_array_equal(ttr.state.t.numpy(), np.asarray(jtr.state.t))
+        for name in ("obs", "share_obs", "rewards"):
+            _close(getattr(ttr.ts, name), getattr(jtr.ts, name))
+            _close(getattr(ttr.final, name), getattr(jtr.final, name))
+        dones, bad = ttr.ts.dones.numpy(), ttr.ts.bad_transition.numpy()
+        np.testing.assert_array_equal(dones, np.asarray(jtr.ts.dones))
+        np.testing.assert_array_equal(bad, np.asarray(jtr.ts.bad_transition))
+        terminated += int((dones[:, 0] & ~bad).sum())
+        truncated += int(bad.sum())
+        jstate, tstate = jtr.state, ttr.state
+    assert terminated >= X // 2 and truncated >= 1, (terminated, truncated)
+
+
+@pytest.mark.parametrize("scenario", ["Walker2d-v2", "Hopper-v2"])
+def test_is_healthy_and_state_clip_match_jax(scenario):
+    """Height, pitch and (hopper) state bounds on states near each edge, and
+    the state vector's qvel clip to ±10 (planar.py:701-705)."""
+    jenv = jmake({"scenario": scenario})
+    tenv = make_env("mamujoco_jax", {"scenario": scenario}, device="cpu")
+    dof = tenv.spec.dof
+    rng = np.random.default_rng(2)
+    q = np.tile(np.array([0.0, 1.25] + [0.0] * (dof - 2), np.float32), (64, 1))
+    q[:, 1] += rng.uniform(-0.6, 0.9, 64).astype(np.float32)
+    q[:, 2] = rng.uniform(-1.2, 1.2, 64).astype(np.float32)
+    q[:, 3:] = rng.uniform(-150, 150, (64, dof - 3)).astype(np.float32) * (rng.uniform(
+        size=(64, 1)) < 0.2)
+    qd = rng.uniform(-120, 120, (64, dof)).astype(np.float32) * (rng.uniform(size=(64, 1)) < 0.3)
+    want = np.asarray(jax.vmap(jenv._is_healthy)(jnp.asarray(q), jnp.asarray(qd)))
+    got = tenv._is_healthy(_t(q), _t(qd)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < 64
+    t = np.zeros(64, np.int32)
+    jts = jax.vmap(jenv._timestep)(JState(jnp.asarray(q), jnp.asarray(qd), jnp.asarray(t)),
+                                   jnp.zeros(64), jnp.zeros(64, bool), jnp.zeros(64, bool))
+    tts = tenv._timestep(PlanarState(_t(q), _t(qd), _t(t)), torch.zeros(64),
+                         torch.zeros(64, dtype=torch.bool), torch.zeros(64, dtype=torch.bool))
+    _close(tts.share_obs, jts.share_obs, 1e-6, 1e-6)
+    _close(tts.obs, jts.obs, 1e-5, 1e-5)
+    assert float(tts.share_obs[:, dof - 1:].abs().max()) == 10.0 < np.abs(qd).max()

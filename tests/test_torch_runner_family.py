@@ -1,8 +1,11 @@
 """Port parity: full replayed ``train_iteration``s of the rest of the
 on-policy family against the JAX runner — HATRPO (HalfCheetah 2x3, and
 SMACLite 3m with the FP state and GRUs), HAA2C with linear lr decay, MAPPO
-with ``share_param`` (one update on the merged batch) and HAPPO with
-``share_param`` (old log-probs re-evaluated before each agent).
+with ``share_param`` (one update on the merged batch), HAPPO with
+``share_param`` (old log-probs re-evaluated before each agent) and HAPPO on
+MPE speaker-listener with discrete actions (heterogeneous agents: obs 3 and
+11 wide padded to 11, Discrete(3) and Discrete(5) heads masked by the
+availability of the padded rows).
 
 As in ``tests/test_torch_runner.py``: the JAX runner starts from
 ``init_state(0)``, the port's runner gets the JAX parameters through
@@ -23,10 +26,11 @@ import pytest
 from harl_tpu.runners.on_policy import OnPolicyRunner as JRunner
 from harl_tpu.utils.config_tools import get_defaults_yaml_args as jdefaults
 from harl_tpu_torch.runners.on_policy import OnPolicyRunner
-from harl_tpu_torch.utils import convert
+from harl_tpu_torch.utils import convert, spaces
 
-from tests.torch_replay import (ReplayNoise, gumbel_noise, reset_noise, smaclite_reset_noise,
-                                step_reset_noise, step_smaclite_reset_noise)
+from tests.torch_replay import (ReplayNoise, gumbel_noise, mpe_reset_noise, reset_noise,
+                                smaclite_reset_noise, step_mpe_reset_noise, step_reset_noise,
+                                step_smaclite_reset_noise)
 
 B, T, DOF = 6, 10, 9
 # the tolerances of the HAPPO iterations (tests/test_torch_runner.py)
@@ -46,6 +50,7 @@ CASES = {
                                                      "actor_num_mini_batch": 2}, 1),
     "happo-share-param": ("happo", "mamujoco_jax", {"share_param": True, "ppo_epoch": 2}, 1),
     "hatrpo-smaclite-fp-gru": ("hatrpo", "smaclite", {"backtrack_coeff": 0.5}, 1),
+    "happo-speaker-listener-discrete": ("happo", "pettingzoo_mpe", {}, 1),
 }
 
 
@@ -59,6 +64,9 @@ def _configs(algo, env, algo_updates, iterations):
     if env == "smaclite":
         algo_args["model"].update(use_recurrent_policy=True, recurrent_n=1, data_chunk_length=5)
         env_args.update(map_name="3m", state_type="FP", episode_limit=7)
+    elif env == "pettingzoo_mpe":
+        env_args.update(scenario="simple_speaker_listener_v3", continuous_actions=False,
+                        max_cycles=7)
     else:
         # episodes of 7 steps: the 10-step rollout truncates and auto-resets
         env_args.update(scenario="HalfCheetah-v2", agent_conf="2x3", episode_limit=7)
@@ -80,12 +88,11 @@ def _queue_iteration(noise, jr, tr, rng):
         k_act, k_env = jax.random.split(k)
         for i, sp in enumerate(jr.act_spaces):
             key = jax.random.fold_in(k_act, i)
-            if smac:
+            if spaces.space_kind(sp) == "Discrete":
                 noise.gumbels.append(gumbel_noise(key, (B, sp.n)))
             else:
                 noise.actions.append(np.asarray(jax.random.normal(key, (B, sp.shape[0]))))
-        noise.resets.append(step_smaclite_reset_noise(k_env, B, N, N) if smac
-                            else step_reset_noise(k_env, B, DOF))
+        noise.resets.append(_step_reset(jr.args["env"], k_env, N))
     actor = tr.actors[0]
     if jr.share_param and not jr.factor_chain:
         if actor.num_mini_batch > 1:
@@ -107,6 +114,23 @@ def _queue_iteration(noise, jr, tr, rng):
     return rng
 
 
+def _step_reset(env, k_env, N):
+    if env == "smaclite":
+        return step_smaclite_reset_noise(k_env, B, N, N)
+    if env == "pettingzoo_mpe":
+        return step_mpe_reset_noise(k_env, B, N, goals=True)
+    return step_reset_noise(k_env, B, DOF)
+
+
+def _reset(env, k_env, N):
+    keys = jax.random.split(k_env, B)
+    if env == "smaclite":
+        return smaclite_reset_noise(keys, N, N)
+    if env == "pettingzoo_mpe":
+        return mpe_reset_noise(keys, N, goals=True)
+    return reset_noise(keys, DOF)
+
+
 def _close(a, b, rtol=DATA_RTOL, atol=DATA_ATOL):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
 
@@ -126,8 +150,7 @@ def test_iterations_match_jax(case):
 
     noise = ReplayNoise()
     _, k_env, *_ = jax.random.split(jax.random.PRNGKey(0), N + 2)
-    noise.resets.append(smaclite_reset_noise(jax.random.split(k_env, B), N, N)
-                        if env == "smaclite" else reset_noise(jax.random.split(k_env, B), DOF))
+    noise.resets.append(_reset(env, k_env, N))
     tr = OnPolicyRunner(args, algo_args, env_args, device="cpu", noise=noise)
     ts = tr.init_state(0)
     assert len(ts.actors) == len(js.actors) == (1 if updates.get("share_param") else N)

@@ -12,12 +12,14 @@ import numpy as np
 import torch
 
 
-def reset_noise(reset_keys, dof):
-    """(uniform [0, 1), standard normal), each (n, dof), as the planar
-    env's ``reset(key)`` draws them (planar.py:647-659)."""
+def reset_noise(reset_keys, dof, qvel_normal=True):
+    """(uniform [0, 1), standard normal or uniform [0, 1)), each (n, dof),
+    as the planar env's ``reset(key)`` draws them (planar.py:647-659): the
+    cheetah's qvel is normal, Walker2d's and Hopper's uniform."""
     def one(key):
         k1, k2 = jax.random.split(key)
-        return jax.random.uniform(k1, (dof,)), jax.random.normal(k2, (dof,))
+        second = jax.random.normal if qvel_normal else jax.random.uniform
+        return jax.random.uniform(k1, (dof,)), second(k2, (dof,))
 
     u, n = jax.vmap(one)(reset_keys)
     return np.asarray(u), np.asarray(n)
@@ -30,9 +32,29 @@ def _step_reset_keys(k_env, n_envs):
     return jax.vmap(lambda k: jax.random.split(k)[1])(keys)
 
 
-def step_reset_noise(k_env, n_envs, dof):
+def step_reset_noise(k_env, n_envs, dof, qvel_normal=True):
     """The planar reset draws of one ``VecEnv.step(…, k_env)``."""
-    return reset_noise(_step_reset_keys(k_env, n_envs), dof)
+    return reset_noise(_step_reset_keys(k_env, n_envs), dof, qvel_normal)
+
+
+def mpe_reset_noise(reset_keys, n_agents, goals, n_landmarks=3):
+    """The MPE reset's draws (mpe.py:176-195) as the port's tuple: the
+    agents' uniforms (n, 2·n_agents), the landmarks' (n, 2·n_landmarks)
+    and, where the scenario draws goals, the ``randint`` goal indices
+    (n, n_agents) as integers."""
+    def one(key):
+        k1, k2, k3 = jax.random.split(key, 3)
+        return (jax.random.uniform(k1, (n_agents, 2)).ravel(),
+                jax.random.uniform(k2, (n_landmarks, 2)).ravel(),
+                jax.random.randint(k3, (n_agents,), 0, n_landmarks))
+
+    ua, ul, g = (np.asarray(x) for x in jax.vmap(one)(reset_keys))
+    return (ua, ul, g) if goals else (ua, ul)
+
+
+def step_mpe_reset_noise(k_env, n_envs, n_agents, goals):
+    """The MPE reset draws of one ``VecEnv.step(…, k_env)``."""
+    return mpe_reset_noise(_step_reset_keys(k_env, n_envs), n_agents, goals)
 
 
 def smaclite_reset_noise(reset_keys, n_allies, n_enemies):
@@ -70,13 +92,18 @@ def normal(key, shape):
     return np.asarray(jax.random.normal(key, shape))
 
 
+def randint(key, shape, high):
+    """``jax.random.randint(key, shape, 0, high)``, as integers."""
+    return np.asarray(jax.random.randint(key, shape, 0, high))
+
+
 class ReplayNoise:
     """A noise source that hands out queued draws, raising if the port asks
     for something other than what was queued."""
 
     def __init__(self):
         self.actions, self.gumbels, self.resets, self.perms = deque(), deque(), deque(), deque()
-        self.uniforms, self.starts = deque(), deque()
+        self.uniforms, self.starts, self.ints = deque(), deque(), deque()
 
     def action_noise(self, shape):
         a = self.actions.popleft()
@@ -88,10 +115,11 @@ class ReplayNoise:
         assert g.shape == tuple(shape), (g.shape, tuple(shape))
         return torch.from_numpy(np.array(g))
 
-    def reset_noise(self, n_envs, dof):
-        u, n = self.resets.popleft()
-        assert tuple(u.shape) == (n_envs, dof)
-        return torch.as_tensor(np.array(u)), torch.as_tensor(np.array(n))
+    def reset_noise(self, n_envs, spec):
+        draws = self.resets.popleft()
+        assert [tuple(x.shape) for x in draws] == [(n_envs, w) for _, w, *_ in spec], (
+            [x.shape for x in draws], spec)
+        return tuple(torch.as_tensor(np.array(x)) for x in draws)
 
     def permutation(self, n):
         p = self.perms.popleft()
@@ -108,6 +136,11 @@ class ReplayNoise:
         assert (idx.shape, high_q) == ((n,), high), (idx.shape, high_q, n, high)
         return torch.from_numpy(np.array(idx)).long()
 
+    def randint(self, shape, high):
+        high_q, a = self.ints.popleft()
+        assert (a.shape, high_q) == (tuple(shape), high), (a.shape, high_q, shape, high)
+        return torch.from_numpy(np.array(a)).long()
+
     def drained(self):
         return not (self.actions or self.gumbels or self.resets or self.perms
-                    or self.uniforms or self.starts)
+                    or self.uniforms or self.starts or self.ints)
