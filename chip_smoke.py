@@ -5,8 +5,8 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, then the
-torch.profiler sessions of 10, 6 and 8: a profiler session leaves the
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, then the
+torch.profiler sessions of 10, 6, 8 and 16: a profiler session leaves the
 process slower, so every timed run comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
@@ -79,13 +79,29 @@ process slower, so every timed run comes before the first one.
    each prints env-steps/s, and the GAE kernel runs once an iteration on (a)
    and (b), no kernel on (c)-(e); then (f) small discrete HASAC and HAD3QN
    blocks and a Walker2d iteration through termination on the card against
-   the CPU (actions, availability, masks and bad masks equal).
+   the CPU (actions, availability, masks and bad masks equal);
+16. drive the slice of SMACv2, the FP replay buffer and the 3D Ant through
+   the CLI on the repo's tuned configs as they are (only iterations or
+   blocks cut, no eval): (a) HAPPO on SMACv2 protoss_5_vs_5, 2 iterations of
+   20 envs x 160 steps (GRU, MLP [64]), where the resets must draw both
+   spawn branches and teams that differ across envs; (b) HATRPO on SMACv2
+   terran_5_vs_5, 1 iteration, where a medivac must be drawn and heal; (c)
+   FP HASAC on SMACLite 5m_vs_6m (n_step 20, auto-alpha, buffer 1,000,000
+   rows), its warmup and 2 blocks, with the buffer's bytes on the card; (d)
+   HAPPO on the Ant 4x2, 2 iterations of 20 x 200; each prints env-steps/s,
+   and the GAE kernel runs once an iteration on (a), (b) and (d), no kernel
+   on (c); then (e) a small SMACv2 HAPPO iteration (a reset and 20 steps),
+   an FP HASAC block on 3m and an Ant iteration through unhealthy
+   terminations on the card against the CPU (unit types, actions,
+   availability, masks and bad masks equal); after every timed run, the
+   device ops of one Ant env step.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -592,15 +608,18 @@ def drive_smaclite_path(card: str, device="cuda") -> tuple:
     return launches, dict(T=T, b=rewards.numel() // T, ms=ms, max_abs_err=err), profile
 
 
-def check_smaclite_against_cpu(devices=("cpu", "cuda")) -> None:
-    """One small SMACLite iteration (3m, FP, GRU) on the card and on the CPU
-    from the same parameters and the same noise (drawn on the CPU)."""
+def check_smaclite_against_cpu(devices=("cpu", "cuda"), map_name: str = "3m",
+                               T: int = 10) -> None:
+    """One small SMACLite iteration (``map_name``, FP, GRU, 8 envs x ``T``
+    steps, episodes of 8 steps) on the card and on the CPU from the same
+    parameters and the same noise (drawn on the CPU): on a SMACv2 map the
+    unit types of every reset equal too."""
     from harl_tpu_torch.utils.noise import GeneratorNoise
 
     runs, outs = [], []
     for dev in devices:
         noise = GeneratorNoise(torch.Generator().manual_seed(4), dev)
-        runner = make_smaclite_runner(8, 10, [16, 16], dev, noise=noise, map_name="3m",
+        runner = make_smaclite_runner(8, T, [16, 16], dev, noise=noise, map_name=map_name,
                                       data_chunk_length=5, episode_limit=8)
         state = runner.init_state(0)
         if runs:   # the card's runner starts from the CPU runner's parameters
@@ -621,10 +640,13 @@ def check_smaclite_against_cpu(devices=("cpu", "cuda")) -> None:
         torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
     for k in ("avail", "masks", "active_masks", "next_masks", "next_bad_masks"):
         if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
-            raise AssertionError(f"smaclite {k}: card != CPU")
+            raise AssertionError(f"smaclite {map_name} {k}: card != CPU")
     for a, b in zip(d_gpu["actions"], d_cpu["actions"]):
         if not torch.equal(a.cpu(), b):
-            raise AssertionError("smaclite actions: card != CPU")
+            raise AssertionError(f"smaclite {map_name} actions: card != CPU")
+    types = [(s.carry.env_state.ally_type, s.carry.env_state.enemy_type) for s in (s_cpu, s_gpu)]
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(*types)):
+        raise AssertionError(f"smaclite {map_name} unit types: card != CPU")
     for k in ("obs", "share_obs", "value", "reward", "critic_rnn"):
         close(d_gpu[k], d_cpu[k])
     for k in ("value_loss", "critic_grad_norm", "mean_step_reward", "episode_return_sum"):
@@ -633,8 +655,8 @@ def check_smaclite_against_cpu(devices=("cpu", "cuda")) -> None:
     for a, b in zip(s_gpu.actors + [s_gpu.critic], s_cpu.actors + [s_cpu.critic]):
         for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
             close(va, vb)
-    log(f"small SMACLite iteration: card == CPU (actions, availability and masks equal; "
-        f"floats at rtol {E2E_RTOL}, atol {E2E_ATOL}); "
+    log(f"small SMACLite {map_name} iteration ({T} steps): card == CPU (actions, availability, "
+        f"masks and unit types equal; floats at rtol {E2E_RTOL}, atol {E2E_ATOL}); "
         f"{float(d_cpu['emitted_cnt'].sum()):.0f} episodes ended")
 
 
@@ -1221,48 +1243,86 @@ SLICE6_PATHS = (("mpe_happo", MPE_HAPPO, 2, 3, False, True),
                 ("mpe_had3qn", MPE_HAD3QN, 2, 3, True, False))
 
 
-def drive_slice6_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
-    """Phase 15 (a)-(e): the tuned configs as they are (only iterations or
-    blocks cut) through ``harl_tpu_torch.train.main``: (a) HAPPO on MPE
-    simple_spread (continuous), 2 iterations of 20 envs x 200 steps with
-    evaluation at the 25-step horizon; (b) HAPPO on Walker2d 6x1, 2 iterations
-    of 20 x 200, where an episode must end unhealthy (a termination, masks 0
-    with bad masks 1); (c) HATD3 on Hopper 3x1, (d) discrete HASAC on
-    speaker-listener (n_step 20, auto-α, buffer 1,000,000 rows) and (e)
-    HAD3QN on discrete simple_spread (125 joint actions), each its warmup
-    and 2 blocks. Each prints env-steps/s over its timed iterations or
-    blocks. Returns the launches by path: GAE once an iteration on (a) and
-    (b), no kernel on (c)-(e)."""
+class Watch(Spy):
+    """A ``Spy`` that reads something of every call on the device and checks
+    it once the run is over: ``read(obj, args, out)`` returns a tensor of
+    counts, summed over the calls; ``report(totals)`` returns a line or
+    raises. No call waits on the device."""
+
+    def __init__(self, cls, name: str, read, report):
+        super().__init__(cls, name, sync=False)
+        self.read, self.report_fn, self.totals = read, report, None
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+
+        @functools.wraps(orig)
+        def wrapped(obj, *args, **kwargs):
+            out = orig(obj, *args, **kwargs)
+            counts = self.read(obj, args, out).to(torch.int64)
+            self.totals = counts if self.totals is None else self.totals + counts
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def report(self) -> str:
+        return self.report_fn(None if self.totals is None else self.totals.tolist())
+
+
+def unhealthy_watch() -> Watch:
+    """Env steps that ended unhealthy in an on-policy rollout: masks 0 where
+    the bad mask is 1 (a termination, not a truncation)."""
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+    def report(totals):
+        if not totals or totals[0] < 1:
+            raise AssertionError("no episode ended unhealthy")
+        return f"{totals[0]} env steps ended unhealthy (masks 0, bad masks 1)"
+
+    return Watch(OnPolicyRunner, "returns_inputs",
+                 lambda obj, args, out: ((out[2] == 0) & (out[3] == 1)).sum()[None], report)
+
+
+def drive_tuned_paths(card: str, log_dir: str, paths, shrink: dict = None,
+                      watches: dict = None) -> dict:
+    """Tuned configs as they are (only iterations or blocks cut) through
+    ``harl_tpu_torch.train.main``. ``paths`` holds (label, config, iterations
+    or blocks, agents, off-policy, evaluate); ``watches`` maps a label to
+    functions that make its ``Watch``es. Each path prints env-steps/s over its
+    timed iterations or blocks after the first; the GAE kernel must run once
+    an on-policy iteration and no kernel on an off-policy path. Returns the
+    launches by path."""
     from harl_tpu_torch import train
     from harl_tpu_torch.runners.off_policy import OffPolicyRunner
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
 
     by_path = {}
-    for label, config, count, n_agents, off, evaluate in SLICE6_PATHS:
+    for label, config, count, n_agents, off, evaluate in paths:
         cfg, extra = cli_args(config, shrink or {})
         n = cfg["n_rollout_threads"]
         steps_each = cfg["train_interval"] if off else cfg["episode_length"]
         argv = ["--num_env_steps", str(count * steps_each * n), "--use_eval", str(evaluate)]
+        watchers = [make() for make in (watches or {}).get(label, ())]
         zero_launches()
         t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for w in watchers:
+                stack.enter_context(w)
+            if off:
+                warm = stack.enter_context(Spy(OffPolicyRunner, "warmup_block"))
+                collects = stack.enter_context(Spy(OffPolicyRunner, "collect_block"))
+                trains = stack.enter_context(Spy(OffPolicyRunner, "train_block"))
+            else:
+                its = stack.enter_context(Spy(OnPolicyRunner, "train_iteration"))
+            run = train.main(["--load_config", config, *argv, *extra,
+                              "--log_dir", os.path.join(log_dir, label)])
         if off:
-            with Spy(OffPolicyRunner, "warmup_block") as warm, \
-                    Spy(OffPolicyRunner, "collect_block") as collects, \
-                    Spy(OffPolicyRunner, "train_block") as trains:
-                run = train.main(["--load_config", config, *argv, *extra,
-                                  "--log_dir", os.path.join(log_dir, label)])
             times = [c[0] + t[0] for c, t in zip(collects.calls, trains.calls)]
             widths = list(warm.calls[0][1].actors[0].hidden_sizes)
         else:
-            # an unhealthy termination: masks 0 where the bad mask is 1
-            with Spy(OnPolicyRunner, "train_iteration") as its, \
-                    Spy(OnPolicyRunner, "returns_inputs", sync=False,
-                        keep=lambda out: ((out[2] == 0) & (out[3] == 1)).sum()) as inputs:
-                run = train.main(["--load_config", config, *argv, *extra,
-                                  "--log_dir", os.path.join(log_dir, label)])
             times = [c[0] for c in its.calls]
             widths = cfg_model_widths(its)
-            terminations = sum(int(c[3]) for c in inputs.calls)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1277,19 +1337,43 @@ def drive_slice6_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
             if not evals or not math.isfinite(evals[-1]["eval_return"]):
                 raise AssertionError(f"{label}: eval records {evals}")
             what = f", eval return {evals[-1]['eval_return']:.4f}"
-        if label == "walker_happo":
-            if terminations < 1:
-                raise AssertionError("walker_happo: no episode ended unhealthy")
-            what = f", {terminations} env steps ended unhealthy (masks 0, bad masks 1)"
+        for w in watchers:
+            try:
+                what += f", {w.report()}"
+            except AssertionError as e:
+                raise AssertionError(f"{label}: {e}") from None
         if off:
-            what += f", warmup {warm.calls[0][0]:.4f} s"
-        rate = (len(times) - 1) * steps_each * n / sum(times[1:])
+            buf = warm.calls[0][3].buffer
+            nbytes = sum(x.numel() * x.element_size() for x in vars(buf).values()
+                         if isinstance(x, torch.Tensor))
+            nbytes += sum(x.numel() * x.element_size() for v in vars(buf).values()
+                          if isinstance(v, list) for x in v)
+            what += (f", warmup {warm.calls[0][0]:.4f} s, replay buffer of {buf.buffer_size} "
+                     f"rows ({type(buf).__name__}) {nbytes / 2 ** 30:.3f} GiB on the card")
+        rate = (len(times) - 1) * steps_each * n / sum(times[1:]) if count > 1 else (
+            steps_each * n / times[0])
+        over = f"the last {len(times) - 1}" if count > 1 else "its one (warm-up included)"
         print(f"{label}: {config} ({n} envs, {'blocks of ' if off else ''}{steps_each} steps, "
               f"MLP {widths}) through train.main in {wall:.2f} s; {'blocks' if off else 'iterations'}"
-              f" of {', '.join(f'{t:.4f}' for t in times)} s, {rate:.1f} env-steps/s over the "
-              f"last {len(times) - 1}{what}; launches {launches} on {card}", flush=True)
+              f" of {', '.join(f'{t:.4f}' for t in times)} s, {rate:.1f} env-steps/s over "
+              f"{over}{what}; launches {launches} on {card}", flush=True)
         by_path[label] = launches
     return by_path
+
+
+def drive_slice6_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
+    """Phase 15 (a)-(e): the tuned configs as they are (only iterations or
+    blocks cut) through ``harl_tpu_torch.train.main``: (a) HAPPO on MPE
+    simple_spread (continuous), 2 iterations of 20 envs x 200 steps with
+    evaluation at the 25-step horizon; (b) HAPPO on Walker2d 6x1, 2 iterations
+    of 20 x 200, where an episode must end unhealthy (a termination, masks 0
+    with bad masks 1); (c) HATD3 on Hopper 3x1, (d) discrete HASAC on
+    speaker-listener (n_step 20, auto-α, buffer 1,000,000 rows) and (e)
+    HAD3QN on discrete simple_spread (125 joint actions), each its warmup
+    and 2 blocks. Returns the launches by path: GAE once an iteration on (a)
+    and (b), no kernel on (c)-(e)."""
+    return drive_tuned_paths(card, log_dir, SLICE6_PATHS, shrink,
+                             {"walker_happo": (unhealthy_watch,)})
 
 
 def small_mpe_runner(algo: str, device, noise):
@@ -1312,11 +1396,26 @@ def small_mpe_runner(algo: str, device, noise):
                            device=device, noise=noise)
 
 
-def check_walker_against_cpu(devices=("cpu", "cuda")) -> None:
-    """Phase 15 (f), Walker2d: one small HAPPO iteration (16 envs x 10
-    steps, 2x3) on the card and on the CPU from the same parameters and
-    noise, half the envs tipped over so that they end unhealthy inside the
-    rollout: masks and bad masks equal, floats close."""
+def tip_walker(env):
+    """Walker2d: half the envs pitched forward and spun, so that they fall."""
+    tip = torch.zeros_like(env.q)
+    tip[::2, 2] = 0.97
+    return env._replace(q=env.q + tip, qd=env.qd + 4.0 * (tip != 0))
+
+
+def sink_ant(env):
+    """Ant: half the torsos just above the 0.2 height bound and falling."""
+    q, qd = env.q.clone(), env.qd.clone()
+    q[::2, 2], qd[::2, 2] = 0.25, -8.0
+    return env._replace(q=q, qd=qd)
+
+
+def check_walker_against_cpu(devices=("cpu", "cuda"), label: str = "walker2d",
+                             env_updates=None, perturb=tip_walker) -> None:
+    """Phase 15 (f), Walker2d (and phase 16 (e), the Ant 4x2): one small
+    HAPPO iteration (16 envs x 10 steps) on the card and on the CPU from the
+    same parameters and noise, half the envs ``perturb``ed so that they end
+    unhealthy inside the rollout: masks and bad masks equal, floats close."""
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
     from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
     from harl_tpu_torch.utils.noise import GeneratorNoise
@@ -1326,16 +1425,13 @@ def check_walker_against_cpu(devices=("cpu", "cuda")) -> None:
         algo_args, env_args = get_defaults_yaml_args("happo", "mamujoco_jax")
         algo_args["train"].update(n_rollout_threads=16, episode_length=10, num_env_steps=10 ** 9)
         algo_args["model"].update(hidden_sizes=[16, 16])
-        env_args.update(scenario="Walker2d-v2", agent_conf="2x3", episode_limit=1000)
+        env_args.update(env_updates or dict(scenario="Walker2d-v2", agent_conf="2x3"),
+                        episode_limit=1000)
         runner = OnPolicyRunner({"algo": "happo", "env": "mamujoco_jax"}, algo_args, env_args,
                                 device=dev, noise=GeneratorNoise(torch.Generator().manual_seed(6),
                                                                  dev))
         state = runner.init_state(0)
-        env = state.carry.env_state
-        tip = torch.zeros_like(env.q)
-        tip[::2, 2] = 0.97
-        state.carry = state.carry._replace(env_state=env._replace(q=env.q + tip,
-                                                                  qd=env.qd + 4.0 * (tip != 0)))
+        state.carry = state.carry._replace(env_state=perturb(state.carry.env_state))
         if runs:   # the card's runner starts from the CPU runner's parameters
             for a, b in zip(state.actors + [state.critic], runs[0][0].actors + [runs[0][0].critic]):
                 a.net.load_state_dict(b.net.state_dict())
@@ -1351,10 +1447,10 @@ def check_walker_against_cpu(devices=("cpu", "cuda")) -> None:
     (d_cpu, m_cpu), (d_gpu, m_gpu) = outs
     for k in ("next_masks", "next_bad_masks", "masks"):
         if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
-            raise AssertionError(f"walker: {k} differ on the card")
+            raise AssertionError(f"{label}: {k} differ on the card")
     ended = int(((d_cpu["next_masks"] == 0) & (d_cpu["next_bad_masks"] == 1)).sum())
     if ended < 1:
-        raise AssertionError("walker: no env ended unhealthy in the small iteration")
+        raise AssertionError(f"{label}: no env ended unhealthy in the small iteration")
     close = lambda a, b: torch.testing.assert_close(
         torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
     for a, b in zip(d_gpu["actions"], d_cpu["actions"]):
@@ -1366,7 +1462,7 @@ def check_walker_against_cpu(devices=("cpu", "cuda")) -> None:
                     runs[0][0].actors + [runs[0][0].critic]):
         for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
             close(va, vb)
-    log(f"small walker2d iteration: card == CPU (masks and bad masks equal, {ended} env steps "
+    log(f"small {label} iteration: card == CPU (masks and bad masks equal, {ended} env steps "
         f"ended unhealthy; floats at rtol {E2E_RTOL}, atol {E2E_ATOL})")
 
 
@@ -1377,6 +1473,122 @@ def check_slice6_against_cpu(devices=("cpu", "cuda")) -> None:
         check_off_policy_against_cpu(algo, devices, make=small_mpe_runner,
                                      label=f"{algo} discrete mpe")
     check_walker_against_cpu(devices)
+
+
+# ---------------------------------- SMACv2, FP HASAC, the 3D Ant (phase 16)
+SMACV2_HAPPO = "tuned_configs/smacv2/protoss_5_vs_5/happo/config.json"
+SMACV2_HATRPO = "tuned_configs/smacv2/terran_5_vs_5/hatrpo/config.json"
+FP_HASAC = "tuned_configs/smaclite/5m_vs_6m/hasac/config.json"
+ANT_HAPPO = "tuned_configs/mamujoco_jax/Ant-v2-4x2/happo/config.json"
+# (label, config, iterations or blocks, agents, off-policy, evaluate)
+SLICE7_PATHS = (("smacv2_happo", SMACV2_HAPPO, 2, 5, False, False),
+                ("smacv2_hatrpo", SMACV2_HATRPO, 1, 5, False, False),
+                ("smaclite_fp_hasac", FP_HASAC, 2, 5, True, False),
+                ("ant_happo", ANT_HAPPO, 2, 4, False, False))
+
+
+def smacv2_draws_watch() -> Watch:
+    """Every SMACv2 reset: envs that spawned surrounded, envs that spawned
+    reflected, and envs whose ally team differs from the first env's."""
+    from harl_tpu_torch.envs.smaclite.smaclite import SMACLite
+
+    def read(env, args, out):
+        surround = args[0][2][:, 0] < env.surround_p
+        differ = (out[0] != out[0][:1]).any(dim=1)
+        return torch.stack([surround.sum(), (~surround).sum(), differ.sum()])
+
+    def report(totals):
+        if not totals or min(totals) < 1:
+            raise AssertionError(f"resets (surrounded, reflected, teams unlike env 0's) "
+                                 f"{totals}: a spawn branch or a second team is missing")
+        return (f"resets drew {totals[0]} surrounded and {totals[1]} reflected spawns, "
+                f"{totals[2]} env teams unlike env 0's")
+
+    return Watch(SMACLite, "_randomized", read, report)
+
+
+def medivac_watch() -> Watch:
+    """Env steps with a medivac among the allies, and allies healed (health
+    only rises by a medivac's heal)."""
+    from harl_tpu_torch.envs.smaclite.smaclite import MEDIVAC, SMACLite
+
+    def read(env, args, out):
+        state, new = args[0], out[0]
+        healed = (new.ally_health > state.ally_health) & (state.ally_health > 0)
+        return torch.stack([(state.ally_type == MEDIVAC).any(dim=1).sum(), healed.sum()])
+
+    def report(totals):
+        if not totals or min(totals) < 1:
+            raise AssertionError(f"(env steps with a medivac, allies healed) {totals}: no "
+                                 f"medivac drawn or no heal")
+        return f"{totals[0]} env steps with a medivac, {totals[1]} heals"
+
+    return Watch(SMACLite, "step", read, report)
+
+
+def drive_slice7_paths(card: str, log_dir: str, shrink: dict = None) -> tuple:
+    """Phase 16 (a)-(d): the tuned configs as they are (only iterations or
+    blocks cut, no eval) through ``harl_tpu_torch.train.main``: (a) HAPPO on
+    SMACv2 protoss_5_vs_5 (20 envs x 160 steps, GRU, MLP [64], EP), 2
+    iterations, both spawn branches and differing teams required; (b)
+    HATRPO on SMACv2 terran_5_vs_5, 1 iteration, a medivac drawn and healing
+    required; (c) FP HASAC on SMACLite 5m_vs_6m (n_step 20, auto-α,
+    [256, 256], buffer 1,000,000 rows), its 10,000-step warmup and 2 blocks;
+    (d) HAPPO on the Ant 4x2 (20 x 200, [128, 128, 128]), 2 iterations.
+    Returns (the launches by path: GAE once an iteration on (a), (b) and (d),
+    none on (c); a function that counts the device ops of one Ant env step,
+    for ``main`` to call after every timed run)."""
+    by_path = drive_tuned_paths(card, log_dir, SLICE7_PATHS, shrink,
+                                {"smacv2_happo": (smacv2_draws_watch,),
+                                 "smacv2_hatrpo": (medivac_watch,)})
+
+    def profile(device="cuda"):
+        from harl_tpu_torch.envs import make_env
+        from harl_tpu_torch.envs.core import VecEnv
+        from harl_tpu_torch.envs.mamujoco_jax.ant import FRAME_SKIP
+        from harl_tpu_torch.utils.noise import GeneratorNoise
+
+        env = make_env("mamujoco_jax", {"scenario": "Ant-v2", "agent_conf": "4x2"}, device)
+        vec = VecEnv(env, 20)
+        noise = GeneratorNoise(torch.Generator(device=device).manual_seed(0), device)
+        state, _ = vec.reset(noise)
+        actions = torch.zeros((20, 4, 2), device=device)
+        step_ops, step_ms = count_device_ops(lambda: env.step(state, actions))
+        sub_ops, sub_ms = count_device_ops(
+            lambda: env.dyn.substep(state.q, state.qd, actions.reshape(20, 8)))
+        vec_ops, vec_ms = count_device_ops(lambda: vec.step(state, actions, noise))
+        print(f"ant device ops (20 envs): one env step ({FRAME_SKIP} substeps) {step_ops} "
+              f"ops, {step_ms:.3f} ms device time; one substep {sub_ops} ops, {sub_ms:.3f} ms; "
+              f"with the auto-reset {vec_ops} ops, {vec_ms:.3f} ms, on {card}", flush=True)
+
+    return by_path, profile
+
+
+def small_fp_hasac_runner(algo: str, device, noise):
+    """FP HASAC on SMACLite 3m at small widths: the block sizes of
+    ``small_off_policy_runner``, episodes of 5 steps, auto-α."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "smaclite")
+    algo_args["train"].update(n_rollout_threads=16, num_env_steps=10 ** 9, warmup_steps=32,
+                              train_interval=4, update_per_train=1)
+    algo_args["algo"].update(batch_size=64, buffer_size=1000, n_step=3, auto_alpha=True)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    return OffPolicyRunner({"algo": algo, "env": "smaclite"}, algo_args,
+                           {"map_name": "3m", "state_type": "FP", "episode_limit": 5},
+                           device=device, noise=noise)
+
+
+def check_slice7_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 16 (e): a SMACv2 reset and 20 steps of a small HAPPO iteration
+    (protoss_5_vs_5), an FP HASAC block on 3m and an Ant 4x2 iteration
+    through unhealthy terminations, on the card against the CPU."""
+    check_smaclite_against_cpu(devices, map_name="protoss_5_vs_5", T=20)
+    check_off_policy_against_cpu("hasac", devices, make=small_fp_hasac_runner,
+                                 label="FP hasac smaclite 3m")
+    check_walker_against_cpu(devices, "ant 4x2", {"scenario": "Ant-v2", "agent_conf": "4x2"},
+                             sink_ant)
 
 
 def main() -> int:
@@ -1412,12 +1624,19 @@ def main() -> int:
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     check_slice6_against_cpu()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        slice7, ant_profile = drive_slice7_paths(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_slice7_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
     smac_profile()
+    ant_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
-               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6}
+               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:

@@ -15,6 +15,11 @@
     TD step.
 
 The continuous critics' loss is Huber or err² (no ½), summed over the twins.
+Under an FP state (``_fp_agents`` N > 1 in the config) a sample's env-level
+fields are agent-major (N·batch, ·), so the joint actions, next joint actions
+and next log-probabilities are tiled N times over the rows, and the soft
+critic with ``use_policy_active_masks`` averages its loss over valid
+transitions only (soft_twin_continuous_q_critic.py:128-147, 175-237).
 MultiDiscrete actions raise, naming their roadmap item.
 """
 from __future__ import annotations
@@ -82,6 +87,8 @@ class ContinuousQCritic:
         self.auto_alpha = cfg.get("auto_alpha", False)
         self.alpha_lr = cfg.get("alpha_lr", 3e-4)
         self.use_valuenorm = cfg.get("use_valuenorm", False) and self.soft
+        self.use_policy_active_masks = cfg.get("use_policy_active_masks", True)
+        self.fp_agents = cfg.get("_fp_agents", 1)
         self.hidden_sizes = tuple(cfg["hidden_sizes"])
         self.activation_func = cfg.get("activation_func", "relu")
         # an agent's width in the joint action: a Box's dim, a Discrete's n
@@ -118,6 +125,14 @@ class ContinuousQCritic:
         """One Adam step on the n-step TD loss; updates ``state`` in place
         and returns the loss (a tensor on the device)."""
         joint_actions = encode_joint_actions(sample.actions, self.act_spaces)
+        valid = None
+        if self.fp_agents > 1:
+            tile = lambda x: x.repeat(self.fp_agents, 1)
+            joint_actions, next_joint_actions = tile(joint_actions), tile(next_joint_actions)
+            if next_logp is not None:
+                next_logp = tile(next_logp)
+            if self.soft and self.use_policy_active_masks:
+                valid = torch.cat(sample.valid_transitions, dim=0)          # (N·batch, 1)
         with torch.no_grad():
             next_q = self._min_q(state.targets, sample.next_share_obs, next_joint_actions)
             not_end = 1.0 - (sample.terms if self.use_proper_time_limits else sample.dones)
@@ -137,7 +152,10 @@ class ContinuousQCritic:
         for net in state.nets:
             err = net(sample.share_obs, joint_actions) - q_targets
             e = huber_loss(err, self.huber_delta) if self.use_huber_loss else err ** 2
-            loss = loss + e.mean()
+            if valid is not None:
+                loss = loss + (e * valid).sum() / torch.clamp(valid.sum(), min=1e-9)
+            else:
+                loss = loss + e.mean()
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()

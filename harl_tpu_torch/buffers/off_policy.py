@@ -1,5 +1,5 @@
 """Device-resident off-policy replay buffer with n-step sampling
-(counterpart of ``harl_tpu/buffers/off_policy.py``, EP layout).
+(counterpart of ``harl_tpu/buffers/off_policy.py``), EP and FP layouts.
 
   * layout: a flat ring of ``buffer_size`` preallocated rows on the runner's
     device; one insert writes the ``n_rollout_threads`` rows of one step, so
@@ -15,7 +15,12 @@ heterogeneous widths need no padding. Under discrete actions each agent also
 has availability rows before and after the step (``avail_dims``), sampled at
 the start and at the last n-step row. ``idx`` and ``cur_size`` are host
 ints: the host knows how many rows it inserted, so no insert or sample waits
-on the device. The FP layout is on the roadmap.
+on the device.
+
+The FP layout (``ReplayBufferFP``, off_policy_buffer_fp.py) gives the
+env-level fields — state, next state, rewards, dones, terms — an agent axis
+(S, N, ·). Each agent walks its own n steps over its own end flags, and a
+sample's env-level fields are agent-major (N·batch, ·) concatenations.
 """
 from __future__ import annotations
 
@@ -23,11 +28,10 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
-FP_TODO = ("the FP replay buffer (init_buffer_fp, sample_fp) is not ported yet "
-           "(ROADMAP.md, Queue A: what the off-policy path left)")
-
 
 class Sample(NamedTuple):
+    """EP: env-level fields (batch, ·); FP: (N·batch, ·), agent-major."""
+
     share_obs: torch.Tensor                 # (batch, ds)
     obs: List[torch.Tensor]                 # per agent (batch, do_i)
     actions: List[torch.Tensor]             # per agent (batch, da_i)
@@ -51,6 +55,8 @@ class ReplayBuffer:
     in place. With ``avail_dims`` (discrete actions), per-agent availability
     rows too."""
 
+    env_axes: tuple = ()   # axes of the env-level fields after the row axis
+
     def __init__(self, buffer_size: int, share_obs_dim: int, obs_dims: Sequence[int],
                  act_dims: Sequence[int], device=None,
                  avail_dims: Optional[Sequence[int]] = None):
@@ -59,8 +65,11 @@ class ReplayBuffer:
         def z(d):
             return torch.zeros((S, d), device=device)
 
+        def z_env(d):
+            return torch.zeros((S, *self.env_axes, d), device=device)
+
         self.buffer_size = S
-        self.share_obs, self.next_share_obs = z(share_obs_dim), z(share_obs_dim)
+        self.share_obs, self.next_share_obs = z_env(share_obs_dim), z_env(share_obs_dim)
         self.obs = [z(d) for d in obs_dims]
         self.next_obs = [z(d) for d in obs_dims]
         self.actions = [z(d) for d in act_dims]
@@ -68,15 +77,16 @@ class ReplayBuffer:
         self.available_actions = None if avail_dims is None else [z(d) for d in avail_dims]
         self.next_available_actions = (None if avail_dims is None
                                        else [z(d) for d in avail_dims])
-        self.rewards, self.dones, self.terms = z(1), z(1), z(1)
+        self.rewards, self.dones, self.terms = z_env(1), z_env(1), z_env(1)
         self.idx = 0        # next row to write
         self.cur_size = 0   # rows written so far, at most S
 
     def insert(self, batch: dict) -> None:
         """Write one vectorised step: ``batch`` has share_obs, next_share_obs,
-        rewards, dones, terms (B, ·) and per-agent lists obs, next_obs,
-        actions, valid_transitions (B, ·), and available_actions,
-        next_available_actions where the buffer keeps them."""
+        rewards, dones, terms (B, ·), or (B, N, ·) under FP, and per-agent
+        lists obs, next_obs, actions, valid_transitions (B, ·), and
+        available_actions, next_available_actions where the buffer keeps
+        them."""
         S, B = self.buffer_size, batch["share_obs"].shape[0]
         # rows (idx + arange(B)) % S as at most two slices
         first = min(B, S - self.idx)
@@ -92,9 +102,10 @@ class ReplayBuffer:
         self.cur_size = min(self.cur_size + B, S)
 
     def end_flag(self, n_threads: int) -> torch.Tensor:
-        """dones, plus each thread's newest row (S,) bool (buffer_ep.py:156-164)."""
+        """dones, plus each thread's newest row: (S,) bool (buffer_ep.py:156-164),
+        under FP (S, N), the newest rows set for every agent."""
         cur = max(self.cur_size, 1)
-        flag = self.dones[:, 0] > 0
+        flag = self.dones[..., 0] > 0
         unfinished = (self.idx - 1 + cur - torch.arange(n_threads, device=flag.device)) % cur
         return flag.index_fill_(0, unfinished, True)
 
@@ -141,9 +152,58 @@ class ReplayBuffer:
         )
 
 
-def init_buffer_fp(*args, **kwargs):
-    raise NotImplementedError(FP_TODO)
+class ReplayBufferFP(ReplayBuffer):
+    """The FP layout (off_policy_buffer_fp.py; JAX ``init_buffer_fp``): state,
+    next state, rewards, dones and terms are (S, N, ·), one row per agent."""
 
+    def __init__(self, buffer_size: int, n_agents: int, share_obs_dim: int,
+                 obs_dims: Sequence[int], act_dims: Sequence[int], device=None,
+                 avail_dims: Optional[Sequence[int]] = None):
+        self.env_axes = (n_agents,)
+        super().__init__(buffer_size, share_obs_dim, obs_dims, act_dims, device, avail_dims)
 
-def sample_fp(*args, **kwargs):
-    raise NotImplementedError(FP_TODO)
+    def sample(self, batch_size: int, n_step: int, gamma: float, n_threads: int,
+               noise=None, start: Optional[torch.Tensor] = None) -> Sample:
+        """JAX ``sample_fp`` (off_policy_buffer_fp.py:52-148): the same starts
+        for every agent, each agent walked ``n_step`` steps of its thread over
+        its own end flags, with its own rewards and γⁿ. Env-level outputs are
+        agent-major (N·batch, ·); agent i's next obs and availability are
+        taken at its own last row."""
+        S, N = self.buffer_size, self.env_axes[0]
+        end_flag = self.end_flag(n_threads).long()                       # (S, N)
+        if start is None:
+            start = noise.indices(batch_size, max(self.cur_size, 1))
+        agent = torch.arange(N, device=start.device)[:, None]           # (N, 1)
+        visited, idx = [], start.expand(N, -1)                           # (N, batch)
+        for _ in range(n_step):
+            visited.append(idx)
+            idx = (idx + (1 - end_flag[idx, agent]) * n_threads) % S
+        final = visited[-1]
+        rew = torch.zeros((N, batch_size, 1), device=start.device)
+        steps = torch.full((N, batch_size), float(n_step), device=start.device)
+        for n in range(n_step - 1, -1, -1):
+            now = visited[n]
+            ef = end_flag[now, agent] > 0
+            steps = torch.where(ef, float(n + 1), steps)
+            rew = torch.where(ef[..., None], 0.0, rew)
+            rew = self.rewards[now, agent] + gamma * rew
+        flat = lambda x: x.reshape((N * batch_size,) + x.shape[2:])
+        at_final = lambda arr: flat(arr[final, agent])
+        take = lambda arr, i: arr.index_select(0, i)
+        avail = self.available_actions is not None
+        return Sample(
+            share_obs=flat(take(self.share_obs, start).transpose(0, 1)),
+            obs=[take(o, start) for o in self.obs],
+            actions=[take(a, start) for a in self.actions],
+            rewards=flat(rew),
+            dones=at_final(self.dones),
+            valid_transitions=[take(v, start) for v in self.valid_transitions],
+            terms=at_final(self.terms),
+            next_share_obs=at_final(self.next_share_obs),
+            next_obs=[take(o, final[i]) for i, o in enumerate(self.next_obs)],
+            gamma=flat(torch.pow(gamma, steps)[..., None]),
+            available_actions=[take(a, start) for a in self.available_actions] if avail else None,
+            next_available_actions=([take(a, final[i])
+                                     for i, a in enumerate(self.next_available_actions)]
+                                    if avail else None),
+        )

@@ -1,9 +1,12 @@
 """Environment registry (counterpart of ``harl_tpu/envs/__init__.py``).
 
-Ported: the planar ``mamujoco_jax`` scenarios (HalfCheetah, Walker2d,
-Hopper), the MPE scenarios under ``pettingzoo_mpe``/``mpe`` (reference
-names with their ``_v2``/``_v3`` suffix accepted) and the pure-tensor
-``smaclite`` maps (fixed compositions). Every other env raises
+Ported: the ``mamujoco_jax`` scenarios HalfCheetah, Walker2d, Hopper (planar)
+and Ant (3D), the MPE scenarios under ``pettingzoo_mpe``/``mpe`` (reference
+names with their ``_v2``/``_v3`` suffix accepted), and the pure-tensor
+SMACLite under ``smaclite``, ``smac`` and ``smacv2``: the fixed
+compositions and SMACv2's randomized maps. ``smac`` and ``smacv2`` run
+SMACLite as the JAX package does when the StarCraft II packages are missing;
+``backend: native`` (the real game) raises. Every other env raises
 ``NotImplementedError`` naming its roadmap item.
 """
 from __future__ import annotations
@@ -29,11 +32,20 @@ def make_env(env_name: str, env_args: dict, device: DeviceLike = None):
             from harl_tpu_torch.envs.mamujoco_jax.planar import make_planar
 
             return make_planar(env_args, resolve_device(device))
+        if scenario.startswith("Ant"):
+            from harl_tpu_torch.envs.mamujoco_jax.ant import make_ant
+
+            return make_ant(env_args, resolve_device(device))
         raise NotImplementedError(
             f"mamujoco_jax scenario {scenario!r} is not ported yet "
             "(ROADMAP.md, remaining pure-JAX envs)")
-    if env_name == "smaclite":
+    if env_name in ("smaclite", "smac", "smacv2"):
         from harl_tpu_torch.envs.smaclite.smaclite import make_smaclite
+
+        if env_name != "smaclite" and env_args.get("backend", "auto") == "native":
+            raise NotImplementedError(
+                f"{env_name} backend 'native' (the StarCraft II game): the port has no "
+                "host-env runner path yet (ROADMAP.md, tooling)")
 
         kwargs = {k: env_args[k] for k in ("episode_limit", "state_type", "reward_scale")
                   if k in env_args}

@@ -6,10 +6,22 @@ state tensor. Mechanics, feature layouts, the map registry and the unit
 tables are those of the JAX env (its module docstring lists them); see there
 for the reference anchors.
 
-Ported: the fixed-composition maps of the registry and the generic
-``Nm_vs_Mm`` marine pattern, EP and FP states, availability masks and the
-``won`` / ``dead_allies`` / ``dead_enemies`` metrics. The SMACv2 randomized
-maps (``protoss_5_vs_5`` …) are on the roadmap and raise.
+Ported: the fixed-composition maps of the registry, the generic
+``Nm_vs_Mm`` marine pattern, the SMACv2 randomized maps (``protoss_5_vs_5``,
+``terran_10_vs_11``, ``zerg_20_vs_23`` …: the capability configs of
+``configs/envs_cfgs/smacv2_map_config/*.yaml``, else the race named first),
+EP and FP states, availability masks and the ``won`` / ``dead_allies`` /
+``dead_enemies`` metrics.
+
+A SMACv2 map draws each episode's unit types from its race pool with the
+config's weights (a team of exception types only — terran medivacs, zerg
+banelings — gets the heaviest other type for its unit 0) and its spawns
+from two branches: with probability ``surround_p`` the allies cluster at
+the centre with the enemies on a ring around them, otherwise both sides
+spawn reflected at random. Every per-type quantity (health, shield,
+cooldown, range, the type one-hot) is read per env from the state's unit
+types; the medivac heal and the baneling splash run wherever the race pool
+holds those types.
 
 Bit-level agreement with the JAX env (the comparisons on distances are exact,
 so a last-bit difference in a position can flip an availability bit):
@@ -28,12 +40,21 @@ so a last-bit difference in a position can flip an availability bit):
   JAX env's jitted ``jnp.linspace`` differs from it by up to one float32
   ulp for some unit counts, so a fresh reset agrees to ~1e-7, not bitwise.
 
-``step`` draws no random numbers. ``reset`` takes the noise source's
-(uniform [0, 1), normal) pair of shape (X, 2A+2E) and uses the uniform part
-for the ally and enemy spawn jitter, U(−1, 1) per coordinate.
+``step`` draws no random numbers. ``reset`` takes the draws of
+``reset_noise_spec``: on a fixed map the (uniform [0, 1), normal) pair of
+shape (X, 2A+2E), whose uniform part is the ally and enemy spawn jitter,
+U(−1, 1) per coordinate; on a SMACv2 map one entry per draw of the JAX
+reset. There a uniform on [lo, hi) is
+``max(lo, u·(hi − lo) + lo)`` rounded once, as XLA fuses it; the weighted
+type draw is ``jax.random.choice``'s (jax 0.9: ``searchsorted`` of
+``cumsum(w)[-1]·(1 − u)`` in ``cumsum(w)``, the left side); the ring's cos and
+sin are formed in float64 and rounded once, so the card and the CPU agree
+bitwise (XLA's float32 cos and sin differ from them by an ulp now and then).
 """
 from __future__ import annotations
 
+import math
+from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -82,7 +103,45 @@ N_PATHING = 8              # n_obs_pathing (flat arena → constants)
 N_HEIGHT = 9               # n_obs_height
 
 _DIRS = ((0.0, 1.0), (0.0, -1.0), (1.0, 0.0), (-1.0, 0.0))
-SMACV2_RACES = ("terran", "protoss", "zerg")
+
+# SMACv2 race pools with the capability configs' weights; the name → id
+# table follows the reference's unit_types strings (smaclite.py:198-239)
+SMACV2_UNIT_IDS = {
+    "marine": MARINE, "marauder": MARAUDER, "medivac": MEDIVAC,
+    "stalker": STALKER, "zealot": ZEALOT, "colossus": COLOSSUS,
+    "zergling": ZERGLING, "baneling": BANELING, "hydralisk": HYDRALISK,
+}
+SMACV2_POOLS = {
+    "terran": ((MARINE, MARAUDER, MEDIVAC), (0.45, 0.45, 0.1)),
+    "protoss": ((STALKER, ZEALOT, COLOSSUS), (0.45, 0.45, 0.1)),
+    "zerg": ((ZERGLING, HYDRALISK, BANELING), (0.45, 0.45, 0.1)),
+}
+SMACV2_MAP_CONFIGS = (Path(__file__).resolve().parents[2] / "configs" / "envs_cfgs"
+                      / "smacv2_map_config")
+
+
+def load_smacv2_map_config(map_name: str) -> Optional[dict]:
+    """A SMACv2 capability config by name from the port's copies of the
+    per-map YAMLs: unit pool, weights, exception types, team sizes and the
+    surrounded-spawn probability; None where no YAML has the name."""
+    import yaml
+
+    path = SMACV2_MAP_CONFIGS / f"{map_name}.yaml"
+    if not path.exists():
+        return None
+    cfg = yaml.safe_load(path.read_text())
+    # the YAMLs hold the whole wrapper's kwargs; only the capability
+    # config is read
+    cfg = cfg.get("capability_config", cfg)
+    tg = cfg["team_gen"]
+    sp = cfg.get("start_positions", {})
+    return dict(
+        n_units=int(cfg["n_units"]), n_enemies=int(cfg["n_enemies"]),
+        pool=tuple(SMACV2_UNIT_IDS[u] for u in tg["unit_types"]),
+        weights=tuple(float(w) for w in tg["weights"]),
+        exception_types=tuple(SMACV2_UNIT_IDS[u] for u in tg.get("exception_unit_types", ())),
+        surround_p=float(sp.get("p", 0.5)),
+    )
 
 
 def _recip(c: float) -> float:
@@ -255,14 +314,25 @@ def _sum_over_units(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _f64_round(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` of float32 ``x`` formed in float64, rounded once."""
+    return fn(x.double()).float()
+
+
 class SMACLite:
-    """A fixed-composition SMACLite map over a batch of envs on ``device``."""
+    """A SMACLite map over a batch of envs on ``device``: a fixed
+    composition, or with ``randomize_types`` SMACv2's per-episode teams
+    drawn from ``race_pool`` (the ally and enemy type tuples then only give
+    the team sizes)."""
 
     metric_keys = ("won", "dead_allies", "dead_enemies")
 
     def __init__(self, ally_types: Tuple[int, ...], enemy_types: Tuple[int, ...],
                  episode_limit: int = 100, unit_type_bits: int = 0, state_type: str = "EP",
-                 reward_scale: bool = True, device: torch.device = torch.device("cpu")):
+                 reward_scale: bool = True, device: torch.device = torch.device("cpu"),
+                 randomize_types: bool = False, race_pool: Tuple[int, ...] = PROTOSS_TYPES,
+                 race_weights: Tuple[float, ...] = (0.45, 0.45, 0.1),
+                 exception_types: Tuple[int, ...] = (), surround_p: float = 0.5):
         if state_type not in ("EP", "FP"):
             raise ValueError(f"state_type {state_type!r}: EP or FP")
         self.ally_types = tuple(ally_types)
@@ -272,6 +342,11 @@ class SMACLite:
         self.state_type = state_type
         self.reward_scale = reward_scale
         self.device = torch.device(device)
+        self.randomize_types = randomize_types
+        self.race_pool = tuple(race_pool)
+        self.race_weights = tuple(race_weights)
+        self.exception_types = tuple(exception_types)
+        self.surround_p = surround_p
         A, E = self.n_allies, self.n_enemies
 
         def f32(x):
@@ -281,7 +356,8 @@ class SMACLite:
         self.damage, self.cooldown = f32(TYPE_DAMAGE), f32(TYPE_COOLDOWN)
         self.range, self.speed, self.radius = f32(TYPE_RANGE), f32(TYPE_SPEED), f32(TYPE_RADIUS)
         self.dirs = f32(_DIRS)
-        loc_a, loc_e = _local_maps(self.ally_types, self.enemy_types, unit_type_bits)
+        kinds_a, kinds_e = self._kinds
+        loc_a, loc_e = _local_maps(kinds_a, kinds_e, self._bits)
         self.loc_a = torch.as_tensor(loc_a, device=self.device)
         self.loc_e = torch.as_tensor(loc_e, device=self.device)
         self.ally_type0 = torch.as_tensor(self.ally_types, dtype=torch.int64, device=self.device)
@@ -307,10 +383,21 @@ class SMACLite:
         self.inv_n_allies = _recip(A)
         self.inv_n_enemies = _recip(E)
         # mechanics a map's unit kinds cannot trigger are skipped: with no
-        # medivac or baneling on a side, its heal or splash terms are zeros
-        self.ally_med, self.enemy_med = MEDIVAC in self.ally_types, MEDIVAC in self.enemy_types
-        self.ally_bane = BANELING in self.ally_types
-        self.enemy_bane = BANELING in self.enemy_types
+        # medivac or baneling on a side (in its race pool on a SMACv2 map),
+        # its heal or splash terms are zeros
+        self.ally_med, self.enemy_med = MEDIVAC in kinds_a, MEDIVAC in kinds_e
+        self.ally_bane, self.enemy_bane = BANELING in kinds_a, BANELING in kinds_e
+        if randomize_types:
+            pool = np.asarray(self.race_pool)
+            self.pool = torch.as_tensor(pool, dtype=torch.int64, device=self.device)
+            # jax.random.choice's cumulative weights, float32
+            self.pool_cum = torch.cumsum(f32(self.race_weights), 0)
+            self.exc = torch.as_tensor(self.exception_types, dtype=torch.int64,
+                                       device=self.device)
+            w_ok = np.where(np.isin(pool, self.exception_types), 0.0, self.race_weights)
+            self.fallback = int(pool[np.argmax(w_ok)])   # the heaviest non-exception type
+            self.refl_lo = f32((-ARENA * 0.8, -ARENA * 0.5))
+            self.refl_span = f32((-2.0, ARENA * 0.5)) - self.refl_lo
 
     # ------------------------------------------------------------- metadata
     @property
@@ -335,21 +422,37 @@ class SMACLite:
 
     @property
     def reset_noise_spec(self):
-        """The spawn jitter's uniforms; the normal half is not read."""
+        """A fixed map: the spawn jitter's uniforms (the normal half is not
+        read). A SMACv2 map: the draws of its reset (smaclite.py:404-453)."""
+        if self.randomize_types:
+            A, E = self.n_allies, self.n_enemies
+            return (("uniform", A), ("uniform", E),                  # ally, enemy types
+                    ("uniform", 1),                                  # the spawn branch
+                    ("uniform", 2 * A), ("uniform", E), ("uniform", E),  # reflected: allies,
+                    # the enemies' y and x jitter
+                    ("normal", 2 * A),                               # surrounded allies
+                    ("uniform", E), ("uniform", E))                  # the ring's angles, radii
         d = self.reset_noise_dim
         return (("uniform", d), ("normal", d))
 
     @property
+    def _kinds(self) -> Tuple[tuple, tuple]:
+        """The unit kinds each side can field: its types, or the race pool."""
+        if self.randomize_types:
+            return self.race_pool, self.race_pool
+        return self.ally_types, self.enemy_types
+
+    @property
     def shield_bits_ally(self) -> int:
-        return 1 if set(self.ally_types) & set(PROTOSS_TYPES) else 0
+        return 1 if set(self._kinds[0]) & set(PROTOSS_TYPES) else 0
 
     @property
     def shield_bits_enemy(self) -> int:
-        return 1 if set(self.enemy_types) & set(PROTOSS_TYPES) else 0
+        return 1 if set(self._kinds[1]) & set(PROTOSS_TYPES) else 0
 
     @property
     def _bits(self) -> int:
-        return self.unit_type_bits
+        return 3 if self.randomize_types else self.unit_type_bits
 
     @property
     def obs_dim(self) -> int:
@@ -393,22 +496,29 @@ class SMACLite:
         # n_enemies·death + win + Σ enemy (health + shield) at full
         et = np.asarray(self.enemy_types)
         hp = float(np.asarray(TYPE_HEALTH)[et].sum() + np.asarray(TYPE_SHIELD)[et].sum())
+        if self.randomize_types:   # an upper bound: the beefiest pool unit
+            pool = np.asarray(self.race_pool)
+            hp = float(self.n_enemies * (np.asarray(TYPE_HEALTH)[pool]
+                                         + np.asarray(TYPE_SHIELD)[pool]).max())
         return self.n_enemies * REWARD_DEATH + REWARD_WIN + hp
 
     # -------------------------------------------------------------- dynamics
-    def reset(self, noise: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[SMACLiteState, TimeStep]:
-        """``noise`` = (uniform [0, 1), normal), each (X, 2A+2E); the uniform
-        part is the spawn jitter of the allies (first 2A) and the enemies
-        (smaclite.py:454-462), mapped to U(−1, 1) as ``jax.random.uniform``
-        maps it."""
-        u = noise[0]
-        X, A, E = u.shape[0], self.n_allies, self.n_enemies
+    def reset(self, noise: Tuple[torch.Tensor, ...]) -> Tuple[SMACLiteState, TimeStep]:
+        """``noise`` as ``reset_noise_spec`` asks. A fixed map: (uniform
+        [0, 1), normal), each (X, 2A+2E); the uniform part is the spawn
+        jitter of the allies (first 2A) and the enemies (smaclite.py:454-462),
+        mapped to U(−1, 1) as ``jax.random.uniform`` maps it. A SMACv2 map:
+        its teams and spawns (``_randomized``)."""
+        X, A, E = noise[0].shape[0], self.n_allies, self.n_enemies
         dev = self.device
-        jitter = torch.clamp(u * 2.0 + (-1.0), min=-1.0)
-        ally_pos = self.spawn_a + jitter[:, : 2 * A].reshape(X, A, 2)
-        enemy_pos = self.spawn_e + jitter[:, 2 * A:].reshape(X, E, 2)
-        ally_type = self.ally_type0.expand(X, A).contiguous()
-        enemy_type = self.enemy_type0.expand(X, E).contiguous()
+        if self.randomize_types:
+            ally_type, enemy_type, ally_pos, enemy_pos = self._randomized(noise)
+        else:
+            jitter = torch.clamp(noise[0] * 2.0 + (-1.0), min=-1.0)
+            ally_pos = self.spawn_a + jitter[:, : 2 * A].reshape(X, A, 2)
+            enemy_pos = self.spawn_e + jitter[:, 2 * A:].reshape(X, E, 2)
+            ally_type = self.ally_type0.expand(X, A).contiguous()
+            enemy_type = self.enemy_type0.expand(X, E).contiguous()
         state = SMACLiteState(
             ally_pos=ally_pos,
             ally_health=self.health[ally_type],
@@ -430,6 +540,45 @@ class SMACLite:
         )
         no = torch.zeros(X, dtype=torch.bool, device=dev)
         return state, self._timestep(state, torch.zeros(X, device=dev), no, no, no)
+
+    def _randomized(self, noise: Tuple[torch.Tensor, ...]):
+        """SMACv2's teams and spawns (smaclite.py:408-451) from the draws of
+        ``reset_noise_spec``: (ally types, enemy types, ally positions, enemy
+        positions)."""
+        u_a, u_e, coin, u_refl, u_ey, u_ex, n_sur, u_ang, u_rad = noise
+        X, A, E = u_a.shape[0], self.n_allies, self.n_enemies
+
+        def team(u):
+            # jax.random.choice(k, len(pool), shape, p=w), replace=True
+            r = self.pool_cum[-1] * (1.0 - u)
+            t = self.pool[torch.searchsorted(self.pool_cum, r.contiguous(), right=False)]
+            if self.exception_types:
+                # a team of exception types only: unit 0 becomes the
+                # heaviest other type
+                only = torch.isin(t, self.exc).all(dim=1)
+                t = torch.cat([torch.where(only, self.fallback, t[:, 0])[:, None], t[:, 1:]], 1)
+            return t
+
+        def uniform(u, lo, span):
+            return torch.clamp(_fma(u, span, torch.full_like(u, lo)), min=lo)
+
+        surround = (coin[:, 0] < self.surround_p)[:, None, None]
+        ally_refl = torch.maximum(_fma(u_refl.reshape(X, A, 2), self.refl_span,
+                                       self.refl_lo.expand(X, A, 2)), self.refl_lo)
+        ey = uniform(u_ey, -ARENA * 0.5, ARENA)
+        # the allies' mean x as XLA forms it: summed in order, times 1/A
+        sum_x = ally_refl[:, 0, 0]
+        for k in range(1, A):
+            sum_x = sum_x + ally_refl[:, k, 0]
+        ex = -(sum_x * _recip(A))[:, None] + uniform(u_ex, -2.0, 4.0)
+        ally_sur = 2.0 * n_sur.reshape(X, A, 2)
+        ang = uniform(u_ang, 0.0, 2.0 * math.pi)
+        radius = uniform(u_rad, 8.0, 3.0)
+        enemy_sur = torch.stack([radius * _f64_round(ang, torch.cos),
+                                 radius * _f64_round(ang, torch.sin)], dim=-1)
+        ally_pos = torch.where(surround, ally_sur, ally_refl)
+        enemy_pos = torch.where(surround, enemy_sur, torch.stack([ex, ey], dim=-1))
+        return team(u_a), team(u_e), ally_pos, enemy_pos
 
     def _attack_phase(self, att_pos, att_type, att_alive, att_cd, want_attack,
                       tgt, tgt_pos, tgt_alive, n_tgt, has_bane: bool):
@@ -885,13 +1034,24 @@ class _Feats(NamedTuple):
 def make_smaclite(map_name: str = "5m_vs_5m", device: torch.device = torch.device("cpu"),
                   episode_limit: Optional[int] = None, state_type: str = "EP",
                   reward_scale: bool = True) -> SMACLite:
-    """A map from the registry (smac_maps.py parity) or the generic
-    ``Nm_vs_Mm`` marine pattern (smaclite.py:1043-1088)."""
-    if map_name.startswith(SMACV2_RACES):
-        raise NotImplementedError(
-            f"SMACv2 randomized map {map_name!r} is not ported yet (ROADMAP.md, "
-            "SMACv2 randomized maps)")
+    """A SMACv2 capability config by name, a SMACv2 name of the form
+    ``<race>_<A>_vs_<E>`` (the race's pool and weights), a map from the
+    registry (smac_maps.py parity) or the generic ``Nm_vs_Mm`` marine
+    pattern (smaclite.py:1043-1088)."""
     kw = dict(state_type=state_type, reward_scale=reward_scale, device=device)
+    v2 = load_smacv2_map_config(map_name)
+    if v2 is not None:
+        return SMACLite((v2["pool"][0],) * v2["n_units"], (v2["pool"][0],) * v2["n_enemies"],
+                        episode_limit or 150, randomize_types=True, race_pool=v2["pool"],
+                        race_weights=v2["weights"], exception_types=v2["exception_types"],
+                        surround_p=v2["surround_p"], **kw)
+    for race, (pool, weights) in SMACV2_POOLS.items():
+        if map_name.startswith(race):
+            parts = map_name.split("_")
+            n_allies = int(parts[1])
+            n_enemies = int(parts[3]) if len(parts) > 3 else n_allies
+            return SMACLite((pool[0],) * n_allies, (pool[0],) * n_enemies, episode_limit or 150,
+                            randomize_types=True, race_pool=pool, race_weights=weights, **kw)
     if map_name in MAP_REGISTRY:
         ally, enemy, limit, bits = MAP_REGISTRY[map_name]
         return SMACLite(ally, enemy, episode_limit or limit, bits, **kw)

@@ -21,14 +21,21 @@ and the episode return adds the mean reward over agents. Under discrete
 actions each agent's availability before and after the step is kept too:
 HASAC masks its logits with it, HAD3QN reads none.
 
+Under an FP state (SMACLite ``state_type: FP``) the buffer is
+``ReplayBufferFP``: each agent's state row, reward, done (the env's end or
+its own death) and term go in, every agent walks its own n steps, and the
+actor objectives tile the joint action (HASAC: also its log-probability
+sum and the valid-transition mask) over the sample's agent-major rows, as
+the critic does. HAD3QN's joint critic has no FP form; it refuses FP.
+
 ``run`` is the training loop around them: the warmup, then collect and
 train blocks, a log record (with an evaluation under ``use_eval``) every
 ``eval_interval // train_interval`` blocks and a checkpoint every five such
 intervals, keeping the newest two (the state holds the replay buffer), and a
 resume from ``model_dir``.
 
-Ported: the EP state, Box and Discrete actions, pure-tensor envs. FP
-states, ``share_param``, MultiDiscrete actions, host envs and meshes raise
+Ported: the EP and FP states, Box and Discrete actions, pure-tensor envs.
+``share_param``, MultiDiscrete actions, host envs and meshes raise
 ``NotImplementedError`` naming their roadmap item.
 
 Randomness comes from one ``torch.Generator`` per runner on its device, and
@@ -71,7 +78,7 @@ from harl_tpu_torch.algos.off_policy_actors import (HAD3QNActor, HADDPGActor, HA
                                                     HATD3Actor, OffPolicyAgentState)
 from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, DiscreteQCritic, QCriticState,
                                             SoftTwinContinuousQCritic, TwinContinuousQCritic)
-from harl_tpu_torch.buffers.off_policy import FP_TODO, ReplayBuffer, Sample
+from harl_tpu_torch.buffers.off_policy import ReplayBuffer, ReplayBufferFP, Sample
 from harl_tpu_torch.envs import make_env
 from harl_tpu_torch.envs.core import VecEnv
 from harl_tpu_torch.runners import common
@@ -88,7 +95,6 @@ MA_ALGOS = ("maddpg", "matd3")          # simultaneous updates with buffer actio
 SMOOTHED = ("hatd3", "matd3")           # target smoothing noise
 # envs the JAX package steps on the host (real MuJoCo, GRF)
 HOST_ENVS = ("mamujoco", "football")
-TODO = "(ROADMAP.md, Queue A: what the off-policy path left)"
 
 
 class OffRolloutCarry(NamedTuple):
@@ -139,7 +145,8 @@ class OffPolicyRunner:
         self.alpha_fixed = al.get("alpha", 0.2)
         self.alpha_lr = al.get("alpha_lr", 3e-4)
         if al.get("share_param", False):
-            raise NotImplementedError(f"off-policy share_param is not ported yet {TODO}")
+            raise NotImplementedError("off-policy share_param is not ported yet "
+                                      "(ROADMAP.md, Queue A: what the off-policy path left)")
         if args["env"] in HOST_ENVS:
             raise NotImplementedError(
                 f"host env {args['env']!r}: the port has no host-env runner path yet "
@@ -152,11 +159,17 @@ class OffPolicyRunner:
         self.act_spaces = env.action_space
         self.obs_dims = [sp.shape[0] for sp in env.observation_space]
         self.share_obs_dim = env.share_observation_space[0].shape[0]
-        if getattr(env, "state_type", env_args.get("state_type", "EP")) == "FP":
-            raise NotImplementedError(f"the off-policy FP state: {FP_TODO}")
+        self.fp = getattr(env, "state_type", env_args.get("state_type", "EP")) == "FP"
+        if self.fp and getattr(env, "fp_state_dim", None) is None:
+            raise NotImplementedError(
+                f"{args['env']} has no FP state (ROADMAP.md, remaining pure-JAX envs)")
+        if self.fp and self.algo == "had3qn":
+            # the joint-action DiscreteQCritic has no FP form (off_policy.py:143-149)
+            raise ValueError("off-policy FP: had3qn's joint critic has no FP form")
 
         cfg = {**al, **md, "use_proper_time_limits": self.use_proper_time_limits,
-               "use_valuenorm": tr.get("use_valuenorm", False)}
+               "use_valuenorm": tr.get("use_valuenorm", False),
+               "_fp_agents": self.n_agents if self.fp else 1}
         # MultiDiscrete spaces raise here, naming their roadmap item
         self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
                                                  self.device)
@@ -191,11 +204,12 @@ class OffPolicyRunner:
                 st.alpha_opt = adam([st.log_alpha], self.alpha_lr)
             actors.append(st)
         critic = self.critic.init(self.generator)
-        buf = ReplayBuffer(self.buffer_size, self.share_obs_dim, self.obs_dims, self.act_dims,
-                           self.device, [sp.n for sp in self.act_spaces] if self.discrete
-                           else None)
         B, N = self.n_rollout_threads, self.n_agents
-        carry = OffRolloutCarry(env_state=env_state, obs=ts.obs, share_obs=ts.share_obs,
+        dims = (self.share_obs_dim, self.obs_dims, self.act_dims, self.device,
+                [sp.n for sp in self.act_spaces] if self.discrete else None)
+        buf = ReplayBufferFP(self.buffer_size, N, *dims) if self.fp else ReplayBuffer(
+            self.buffer_size, *dims)
+        carry = OffRolloutCarry(env_state=env_state, obs=ts.obs, share_obs=self._state(ts),
                                 avail=ts.available_actions,
                                 agent_deaths=torch.zeros((B, N, 1), device=self.device),
                                 ep_ret=torch.zeros(B, device=self.device))
@@ -207,6 +221,10 @@ class OffPolicyRunner:
         if self.auto_alpha:
             return torch.exp(st.log_alpha.detach())
         return self.alpha_fixed
+
+    def _state(self, ts) -> torch.Tensor:
+        """The state the buffer keeps: EP (B, ds), FP (B, N, ds)."""
+        return ts.agent_state if self.fp else ts.share_obs
 
     def _obs_i(self, obs: torch.Tensor, i: int) -> torch.Tensor:
         return obs[:, i, : self.obs_dims[i]]
@@ -241,17 +259,24 @@ class OffPolicyRunner:
         done_env = final.dones.all(dim=1, keepdim=True).to(torch.float32)       # (B, 1)
         terms = done_env * (1.0 - final.bad_transition.to(torch.float32)[:, None])
         valid = 1.0 - carry.agent_deaths                                       # (B, N, 1)
-        new_deaths = torch.where(done_env[:, :, None] > 0, 0.0,
-                                 final.dones[..., None].to(torch.float32))
+        dones_agent = final.dones[..., None].to(torch.float32)                # (B, N, 1)
+        new_deaths = torch.where(done_env[:, :, None] > 0, 0.0, dones_agent)
+        if self.fp:
+            # per agent: its reward, its done (the env's end or its death)
+            # and term (off_policy_base_runner.py FP branch)
+            rewards, dones = final.rewards, dones_agent
+            terms = dones_agent * (1.0 - final.bad_transition.to(torch.float32)[:, None, None])
+        else:
+            rewards, dones = final.rewards[:, 0], done_env
         batch = dict(
             share_obs=carry.share_obs,
             obs=[self._obs_i(carry.obs, i) for i in range(N)],
             actions=acts,
-            rewards=final.rewards[:, 0],
-            dones=done_env,
+            rewards=rewards,
+            dones=dones,
             valid_transitions=[valid[:, i] for i in range(N)],
             terms=terms,
-            next_share_obs=final.share_obs,
+            next_share_obs=self._state(final),
             next_obs=[self._obs_i(final.obs, i) for i in range(N)])
         if state.buffer.available_actions is not None:
             batch.update(
@@ -261,7 +286,7 @@ class OffPolicyRunner:
         state.buffer.insert(batch)
         done = done_env[:, 0] > 0
         ep_ret = carry.ep_ret + final.rewards[:, :, 0].mean(dim=1)
-        state.carry = OffRolloutCarry(env_state=tr.state, obs=ts.obs, share_obs=ts.share_obs,
+        state.carry = OffRolloutCarry(env_state=tr.state, obs=ts.obs, share_obs=self._state(ts),
                                       avail=ts.available_actions, agent_deaths=new_deaths,
                                       ep_ret=torch.where(done, 0.0, ep_ret))
         return torch.where(done, ep_ret, 0.0), done.to(torch.float32), final.rewards.mean()
@@ -355,7 +380,14 @@ class OffPolicyRunner:
         st.opt.step()
 
     def _joint(self, actions: List[torch.Tensor], i: int, a_i: torch.Tensor) -> torch.Tensor:
-        return torch.cat([a_i if j == i else a for j, a in enumerate(actions)], dim=-1)
+        """The joint action with agent i's replaced, tiled over the agent-major
+        rows of an FP sample."""
+        return self._tile(torch.cat([a_i if j == i else a for j, a in enumerate(actions)],
+                                    dim=-1))
+
+    def _tile(self, x: torch.Tensor) -> torch.Tensor:
+        """(batch, ·) → (N·batch, ·) under FP (off_policy_ha_runner.py:113-146)."""
+        return x.repeat(self.n_agents, 1) if self.fp else x
 
     def _order(self) -> List[int]:
         if self.fixed_order or self.n_agents == 1:
@@ -401,9 +433,9 @@ class OffPolicyRunner:
             eps_i = actor.draw(self.noise, B)   # loss and re-sample
             a_i, lp_i = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i, avail_i)
             q = self.critic.get_values(state.critic, sp.share_obs, self._joint(actions, i, a_i))
-            obj = q - alpha_i * lp_i.sum(dim=-1, keepdim=True)
+            obj = q - alpha_i * self._tile(lp_i.sum(dim=-1, keepdim=True))
             if self.use_policy_active_masks:
-                vt = sp.valid_transitions[i]
+                vt = self._tile(sp.valid_transitions[i])
                 loss = -(obj * vt).sum() / torch.clamp(vt.sum(), min=1e-9)
             else:
                 loss = -obj.mean()

@@ -26,8 +26,8 @@ def get_defaults_yaml_args(algo: str, env: str) -> Tuple[Dict, Dict]:
             raise NotImplementedError(
                 f"{path.name}: the port ships the YAMLs of all ten algorithms (happo, "
                 "hatrpo, haa2c, mappo, hasac, haddpg, hatd3, had3qn, maddpg, matd3) and of "
-                "mamujoco_jax, pettingzoo_mpe and smaclite so far (ROADMAP.md, Queue A: the "
-                "remaining pure-JAX envs)"
+                "mamujoco_jax, pettingzoo_mpe, smaclite, smac and smacv2 (with the 15 SMACv2 "
+                "map configs) so far (ROADMAP.md, Queue A: the remaining pure-JAX envs)"
             )
     with open(algo_path) as f:
         algo_args = yaml.safe_load(f)

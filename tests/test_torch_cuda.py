@@ -200,12 +200,19 @@ def test_mpe_steps_on_the_card_match_the_cpu(device, scenario, continuous):
     assert ends == X
 
 
-@pytest.mark.parametrize("scenario,dof", [("Walker2d-v2", 9), ("Hopper-v2", 6)])
-def test_planar_termination_on_the_card_matches_the_cpu(device, scenario, dof):
+# (scenario, dof, the offset of q[2] that makes half the envs fail, and the
+# velocity added there): Walker2d and Hopper pitched forward, the Ant's torso
+# dropped to just above its 0.2 height bound and falling
+TERMINATION_CASES = [("Walker2d-v2", 9, 0.97, 4.0), ("Hopper-v2", 6, 0.19, 2.0),
+                     ("Ant-v2", 14, -0.5, -8.0)]
+
+
+@pytest.mark.parametrize("scenario,dof,offset,rate", TERMINATION_CASES)
+def test_planar_termination_on_the_card_matches_the_cpu(device, scenario, dof, offset, rate):
     """12 auto-reset steps of 32 envs, half of them tipped over so that they
     terminate unhealthy (dones without truncation) before the truncation at
     step 8: the state and the observations at the planar tolerances (rtol
-    1e-4, atol 2e-4), the flags equal."""
+    1e-4, atol 2e-4), the flags equal. The 3D Ant runs here too."""
     from harl_tpu_torch.envs import core, make_env
 
     env_args = {"scenario": scenario, "episode_limit": 8}
@@ -214,8 +221,7 @@ def test_planar_termination_on_the_card_matches_the_cpu(device, scenario, dof):
     states = [e.reset(d)[0] for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g,
                                                               envs))]
     tip = torch.zeros((X, dof))
-    tip[::2, 2] = 0.97 if scenario == "Walker2d-v2" else 0.19
-    rate = 4.0 if scenario == "Walker2d-v2" else 2.0
+    tip[::2, 2] = offset
     states = [s._replace(q=s.q + tip.to(s.q.device), qd=s.qd + rate * (tip != 0).to(s.q.device))
               for s in states]
     width = max(sp.dim for sp in envs[0].action_space)
@@ -236,3 +242,43 @@ def test_planar_termination_on_the_card_matches_the_cpu(device, scenario, dof):
         terminated += int((c.ts.dones[:, 0] & ~c.ts.bad_transition).sum())
         states = [tr.state for tr in trs]
     assert terminated >= X // 2
+
+
+@pytest.mark.parametrize("map_name", ["protoss_5_vs_5", "terran_5_vs_5", "zerg_10_vs_11"])
+def test_smacv2_steps_on_the_card_equal_the_cpu(device, map_name):
+    """SMACv2 resets (teams and spawns from the same draws) and 30 auto-reset
+    steps of 32 envs with the same actions on both devices, through the
+    8-step episode limit: unit types, every discrete output and the
+    availability equal; floats at rtol 1e-6, atol 1e-7 (the ring's cos and
+    sin are formed in float64 on each device)."""
+    from harl_tpu_torch.envs import core
+    from harl_tpu_torch.envs.smaclite.smaclite import make_smaclite
+
+    envs = [make_smaclite(map_name, torch.device(d), state_type="FP", episode_limit=8)
+            for d in ("cpu", device)]
+    g, X = torch.Generator().manual_seed(0), 32
+    out = [e.reset(d) for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+    states, ts = [o[0] for o in out], [o[1] for o in out]
+    exact = ("ally_type", "enemy_type", "last_action", "enemy_tgt", "t", "battle_over")
+    ends = 0
+    for _ in range(30):
+        (s_cpu, s_gpu), (t_cpu, t_gpu) = states, ts
+        for k in exact:
+            assert torch.equal(getattr(s_gpu, k).cpu(), getattr(s_cpu, k)), k
+        for k in ("ally_pos", "ally_health", "ally_shield", "enemy_pos", "enemy_health"):
+            torch.testing.assert_close(getattr(s_gpu, k).cpu(), getattr(s_cpu, k), rtol=1e-6,
+                                       atol=1e-7)
+        assert torch.equal(t_gpu.available_actions.cpu(), t_cpu.available_actions)
+        for k in ("obs", "share_obs", "agent_state"):
+            torch.testing.assert_close(getattr(t_gpu, k).cpu(), getattr(t_cpu, k), rtol=1e-6,
+                                       atol=1e-7)
+        # random available actions, chosen on the CPU
+        u = torch.rand(t_cpu.available_actions.shape, generator=g) * t_cpu.available_actions
+        a = u.argmax(dim=-1, keepdim=True)
+        trs = [core.auto_reset_step(e, st, a.to(e.device), d) for e, st, d in
+               zip(envs, states, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+        for k in ("dones", "bad_transition"):
+            assert torch.equal(getattr(trs[1].final, k).cpu(), getattr(trs[0].final, k)), k
+        ends += int(trs[0].final.dones.all(dim=1).sum())
+        states, ts = [tr.state for tr in trs], [tr.ts for tr in trs]
+    assert ends >= X

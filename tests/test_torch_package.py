@@ -56,7 +56,8 @@ def test_imports_no_jax_and_no_harl_tpu():
     unimportable, and loads nothing of harl_tpu."""
     names = _import_walk()
     for name in ("runners.on_policy", "runners.common", "train", "logging.logger",
-                 "utils.checkpoint", "utils.profiling", "utils.config_tools", "algos.hatrpo"):
+                 "utils.checkpoint", "utils.profiling", "utils.config_tools", "algos.hatrpo",
+                 "envs.mamujoco_jax.ant", "envs.smaclite.smaclite", "buffers.off_policy"):
         assert f"harl_tpu_torch.{name}" in names, names
     assert len(names) >= 20
 
@@ -164,9 +165,10 @@ def test_smaclite_path_defaults_to_cuda_and_refuses_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             OnPolicyRunner(SMAC_ARGS, algo_args, env_args)
-    with pytest.raises(NotImplementedError, match="SMACv2 randomized maps"):
-        OnPolicyRunner(SMAC_ARGS, algo_args, dict(env_args, map_name="protoss_5_vs_5"),
-                       device="cpu")
+    # SMACv2's randomized maps, refused before, run (FP, GRU)
+    runner, _ = _one_iteration(SMAC_ARGS, algo_args, dict(env_args, map_name="protoss_5_vs_5"),
+                               5)
+    assert runner.env.randomize_types and runner.share_obs_dim == runner.env.fp_state_dim
     # share_param and HATRPO, refused before, run (3m's marines are homogeneous)
     _one_iteration(SMAC_ARGS, _with(algo_args, "algo", "share_param", True), env_args, 3)
     trpo_args, _ = get_defaults_yaml_args("hatrpo", "smaclite")
@@ -218,6 +220,7 @@ def test_off_policy_unported_options_raise():
     shared["algo"]["share_param"] = True
     with pytest.raises(NotImplementedError, match="share_param.*ROADMAP"):
         OffPolicyRunner(hasac, shared, env_args, device="cpu")
+    # the planar env has no FP state
     with pytest.raises(NotImplementedError, match="FP.*ROADMAP"):
         OffPolicyRunner(hasac, algo_args, dict(env_args, state_type="FP"), device="cpu")
     with pytest.raises(NotImplementedError, match="MultiDiscrete heads"):
@@ -231,7 +234,10 @@ def test_off_policy_unported_options_raise():
                                   ("hasac", "pettingzoo_mpe",
                                    {"scenario": "simple_reference_v2",
                                     "continuous_actions": False, "max_cycles": 3}),
-                                  ("hasac", "smaclite", {"map_name": "3m", "episode_limit": 3})):
+                                  ("hasac", "smaclite", {"map_name": "3m", "episode_limit": 3}),
+                                  # the FP state, refused before, runs
+                                  ("hasac", "smaclite", {"map_name": "3m", "episode_limit": 3,
+                                                         "state_type": "FP"})):
         d_args, _ = get_defaults_yaml_args(algo, "pettingzoo_mpe")
         d_args["train"].update(n_rollout_threads=3, warmup_steps=6, train_interval=2)
         d_args["algo"].update(batch_size=8, buffer_size=50)
@@ -241,6 +247,8 @@ def test_off_policy_unported_options_raise():
         state, cm = runner.collect_block(state)
         state, tm = runner.train_block(state)
         assert runner.discrete and state.buffer.available_actions is not None
+        assert state.buffer.share_obs.dim() == (3 if env_args_d.get("state_type") == "FP"
+                                                else 2)
         assert math.isfinite(float(tm["critic_loss"])) and state.total_it == 2
     with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
         OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,

@@ -136,12 +136,14 @@ def test_unported_envs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env("football_jax", {}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("mamujoco_jax", {"scenario": "Ant-v2"}, device="cpu")
+        make_env("mamujoco_jax", {"scenario": "Humanoid-v2"}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env("mamujoco_jax", {"scenario": "manyagent_swimmer"}, device="cpu")
-    # ported since: Walker2d and Hopper, with their JAX defaults
+    # ported since: Walker2d and Hopper, and the 3D Ant (test_torch_ant.py),
+    # with their JAX defaults
     assert make_env("mamujoco_jax", {"scenario": "Walker2d-v2"}, device="cpu").n_agents == 2
     assert make_env("mamujoco_jax", {"scenario": "Hopper-v2"}, device="cpu").n_agents == 3
+    assert make_env("mamujoco_jax", {"scenario": "Ant-v2"}, device="cpu").n_agents == 4
 
 
 # ------------------------------------------------------ Walker2d and Hopper

@@ -91,7 +91,17 @@ def test_sample_draws_starts_from_the_noise_source():
 
 
 def test_fp_layout_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuf.init_buffer_fp(S, 2, DS, OBS, ACT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuf.sample_fp(None, None, 8, 1, GAMMA, B)
+    """The FP layout, refused before, runs (kept under its old name): its
+    env-level fields carry an agent axis, and a sample's are agent-major
+    (the parity against JAX is in test_torch_fp_off_policy.py)."""
+    tb = tbuf.ReplayBufferFP(S, 2, DS, OBS, ACT, device="cpu")
+    assert tuple(tb.share_obs.shape) == (S, 2, DS) and tuple(tb.dones.shape) == (S, 2, 1)
+    for step in _steps(3, 0):
+        step = {k: [torch.from_numpy(x) for x in v] if isinstance(v, list)
+                else torch.from_numpy(v) for k, v in step.items()}
+        for k in ("share_obs", "next_share_obs", "rewards", "dones", "terms"):
+            step[k] = torch.stack([step[k], -step[k]], dim=1)
+        tb.insert(step)
+    ts = tb.sample(8, 2, GAMMA, B, start=torch.arange(8))
+    assert tuple(ts.share_obs.shape) == (16, DS) and tuple(ts.gamma.shape) == (16, 1)
+    _equal(ts.share_obs[8:], -ts.share_obs[:8])

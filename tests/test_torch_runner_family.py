@@ -5,7 +5,8 @@ with ``share_param`` (one update on the merged batch), HAPPO with
 ``share_param`` (old log-probs re-evaluated before each agent) and HAPPO on
 MPE speaker-listener with discrete actions (heterogeneous agents: obs 3 and
 11 wide padded to 11, Discrete(3) and Discrete(5) heads masked by the
-availability of the padded rows).
+availability of the padded rows), HAPPO on the 3D Ant 2x4, and HAPPO with
+GRUs on SMACv2 protoss_5_vs_5 (teams and spawns drawn at every reset).
 
 As in ``tests/test_torch_runner.py``: the JAX runner starts from
 ``init_state(0)``, the port's runner gets the JAX parameters through
@@ -29,8 +30,9 @@ from harl_tpu_torch.runners.on_policy import OnPolicyRunner
 from harl_tpu_torch.utils import convert, spaces
 
 from tests.torch_replay import (ReplayNoise, gumbel_noise, mpe_reset_noise, reset_noise,
-                                smaclite_reset_noise, step_mpe_reset_noise, step_reset_noise,
-                                step_smaclite_reset_noise)
+                                smaclite_reset_noise, smacv2_reset_noise, step_mpe_reset_noise,
+                                step_reset_noise, step_smaclite_reset_noise,
+                                step_smacv2_reset_noise)
 
 B, T, DOF = 6, 10, 9
 # the tolerances of the HAPPO iterations (tests/test_torch_runner.py)
@@ -51,25 +53,31 @@ CASES = {
     "happo-share-param": ("happo", "mamujoco_jax", {"share_param": True, "ppo_epoch": 2}, 1),
     "hatrpo-smaclite-fp-gru": ("hatrpo", "smaclite", {"backtrack_coeff": 0.5}, 1),
     "happo-speaker-listener-discrete": ("happo", "pettingzoo_mpe", {}, 1),
+    "happo-ant-2x4": ("happo", "mamujoco_jax", {}, 1,
+                      {"scenario": "Ant-v2", "agent_conf": "2x4"}),
+    "happo-smacv2-protoss-gru": ("happo", "smacv2", {}, 1, {"map_name": "protoss_5_vs_5"}),
 }
 
 
-def _configs(algo, env, algo_updates, iterations):
+def _configs(algo, env, algo_updates, iterations, env_updates=None):
     algo_args, env_args = jdefaults(algo, env)
     algo_args["train"].update(n_rollout_threads=B, episode_length=T,
                               num_env_steps=iterations * T * B,
                               use_linear_lr_decay=algo == "haa2c")
     algo_args["model"].update(hidden_sizes=[16, 16])
     algo_args["algo"].update(critic_epoch=2, **algo_updates)
-    if env == "smaclite":
+    if env in ("smaclite", "smacv2"):
         algo_args["model"].update(use_recurrent_policy=True, recurrent_n=1, data_chunk_length=5)
         env_args.update(map_name="3m", state_type="FP", episode_limit=7)
+        if env == "smacv2":   # the tuned SMACv2 configs' EP state
+            env_args.update(state_type="EP")
     elif env == "pettingzoo_mpe":
         env_args.update(scenario="simple_speaker_listener_v3", continuous_actions=False,
                         max_cycles=7)
     else:
         # episodes of 7 steps: the 10-step rollout truncates and auto-resets
         env_args.update(scenario="HalfCheetah-v2", agent_conf="2x3", episode_limit=7)
+    env_args.update(env_updates or {})
     return algo_args, env_args
 
 
@@ -92,7 +100,7 @@ def _queue_iteration(noise, jr, tr, rng):
                 noise.gumbels.append(gumbel_noise(key, (B, sp.n)))
             else:
                 noise.actions.append(np.asarray(jax.random.normal(key, (B, sp.shape[0]))))
-        noise.resets.append(_step_reset(jr.args["env"], k_env, N))
+        noise.resets.append(_step_reset(jr, k_env, N))
     actor = tr.actors[0]
     if jr.share_param and not jr.factor_chain:
         if actor.num_mini_batch > 1:
@@ -114,21 +122,32 @@ def _queue_iteration(noise, jr, tr, rng):
     return rng
 
 
-def _step_reset(env, k_env, N):
+def _step_reset(jr, k_env, N):
+    env = jr.args["env"]
     if env == "smaclite":
         return step_smaclite_reset_noise(k_env, B, N, N)
+    if env == "smacv2":
+        return step_smacv2_reset_noise(k_env, B, N, jr.env.n_enemies)
     if env == "pettingzoo_mpe":
         return step_mpe_reset_noise(k_env, B, N, goals=True)
-    return step_reset_noise(k_env, B, DOF)
+    return step_reset_noise(k_env, B, _dof(jr))
 
 
-def _reset(env, k_env, N):
+def _reset(jr, k_env, N):
+    env = jr.args["env"]
     keys = jax.random.split(k_env, B)
     if env == "smaclite":
         return smaclite_reset_noise(keys, N, N)
+    if env == "smacv2":
+        return smacv2_reset_noise(keys, N, jr.env.n_enemies)
     if env == "pettingzoo_mpe":
         return mpe_reset_noise(keys, N, goals=True)
-    return reset_noise(keys, DOF)
+    return reset_noise(keys, _dof(jr))
+
+
+def _dof(jr):
+    """The reset draws' width: the planar cheetah's 9 DOF or the Ant's 14."""
+    return 14 if jr.env_args.get("scenario", "").startswith("Ant") else DOF
 
 
 def _close(a, b, rtol=DATA_RTOL, atol=DATA_ATOL):
@@ -141,8 +160,8 @@ def _np(tree):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_iterations_match_jax(case):
-    algo, env, updates, iterations = CASES[case]
-    algo_args, env_args = _configs(algo, env, updates, iterations)
+    algo, env, updates, iterations, *env_updates = CASES[case]
+    algo_args, env_args = _configs(algo, env, updates, iterations, *env_updates)
     args = {"algo": algo, "env": env, "exp_name": "parity"}
     jr = JRunner(args, copy.deepcopy(algo_args), copy.deepcopy(env_args))
     js = jr.init_state(0)
@@ -150,7 +169,7 @@ def test_iterations_match_jax(case):
 
     noise = ReplayNoise()
     _, k_env, *_ = jax.random.split(jax.random.PRNGKey(0), N + 2)
-    noise.resets.append(_reset(env, k_env, N))
+    noise.resets.append(_reset(jr, k_env, N))
     tr = OnPolicyRunner(args, algo_args, env_args, device="cpu", noise=noise)
     ts = tr.init_state(0)
     assert len(ts.actors) == len(js.actors) == (1 if updates.get("share_param") else N)

@@ -220,8 +220,13 @@ def test_registry_and_unported_names():
     assert env.episode_limit == 70 and env.reset_noise_dim == 22
     generic = make_smaclite("7m_vs_9m")
     assert (generic.n_allies, generic.n_enemies, generic.episode_limit) == (7, 9, 100)
-    for name in ("protoss_5_vs_5", "terran_10_vs_11", "zerg_5_vs_5"):
-        with pytest.raises(NotImplementedError, match="SMACv2"):
-            make_smaclite(name)
-    with pytest.raises(NotImplementedError):
-        make_env("smac", {}, device="cpu")
+    # SMACv2's randomized maps and the smac env name, refused before, build
+    # (their parity with JAX is in test_torch_smacv2.py)
+    for name, sizes in (("protoss_5_vs_5", (5, 5)), ("terran_10_vs_11", (10, 11)),
+                        ("zerg_5_vs_5", (5, 5))):
+        env = make_smaclite(name)
+        assert env.randomize_types and (env.n_allies, env.n_enemies) == sizes
+    assert make_env("smac", {}, device="cpu").n_agents == 5
+    # the real game stays unported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_env("smac", {"backend": "native"}, device="cpu")

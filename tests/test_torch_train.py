@@ -185,17 +185,29 @@ MPE_AND_PLANAR = (
     + ["pettingzoo_mpe/simple_spread/happo"]
     + [f"mamujoco_jax/Walker2d-v2-{c}/{a}" for c in ("2x3", "6x1") for a in NINE]
     + [f"mamujoco_jax/Hopper-v2-3x1/{a}" for a in NINE if a != "hasac"])
+# every smaclite HASAC config (the FP replay buffer), every SMACv2 config and
+# every Ant config (29)
+FP_SMACV2_ANT = (
+    [f"smaclite/{m}/hasac" for m in ("10m_vs_11m", "3s5z", "3s5z_vs_3s6z", "5m_vs_6m",
+                                     "6h_vs_8z", "8m_vs_9m", "MMM2", "corridor")]
+    + [f"smacv2/{m}/{a}" for m in ("protoss_5_vs_5", "terran_5_vs_5", "zerg_10_vs_10",
+                                   "zerg_10_vs_11", "zerg_5_vs_5") for a in ("happo", "hatrpo")]
+    + [f"mamujoco_jax/Ant-v2-4x2/{a}" for a in NINE]
+    + ["mamujoco_jax/Ant-v2-2x4/hasac", "mamujoco_jax/Ant-v2-8x1/hasac"])
 MUST_BUILD = ([f"mamujoco_jax/HalfCheetah-v2-2x3/{a}" for a in NINE]
               + ["mamujoco_jax/HalfCheetah-v2-6x1/happo", "mamujoco_jax/HalfCheetah-v2-6x1/hasac",
-                 "smaclite/5m_vs_6m/happo", "smaclite/5m_vs_6m/hatrpo"] + MPE_AND_PLANAR)
+                 "smaclite/5m_vs_6m/happo", "smaclite/5m_vs_6m/hatrpo"] + MPE_AND_PLANAR
+              + FP_SMACV2_ANT)
 
 
 def test_every_tuned_config_builds_or_names_its_roadmap_item():
     built, refused = [], {}
     paths = sorted(glob.glob(str(ROOT / "tuned_configs/mamujoco_jax/*/*/config.json"))
                    + glob.glob(str(ROOT / "tuned_configs/smaclite/*/*/config.json"))
+                   + glob.glob(str(ROOT / "tuned_configs/smacv2/*/*/config.json"))
                    + glob.glob(str(ROOT / "tuned_configs/pettingzoo_mpe/*/*/config.json")))
     assert len(paths) > 100 and len(MPE_AND_PLANAR) == len(set(MPE_AND_PLANAR)) == 71
+    assert len(FP_SMACV2_ANT) == len(set(FP_SMACV2_ANT)) == 29
     for path in paths:
         name = str(Path(path).parent.relative_to(ROOT / "tuned_configs"))
         main_args, algo_args, env_args = tconfig.load_config(path)
@@ -212,7 +224,7 @@ def test_every_tuned_config_builds_or_names_its_roadmap_item():
     assert not missing, {n: refused.get(n) for n in missing}
     assert len(built) + len(refused) == len(paths)
     # of the 156 tuned configs (the other families refuse in make_env)
-    assert len(built) >= 104, (len(built), refused)
+    assert len(built) >= 133, (len(built), refused)
 
 
 def test_render_and_profile_trace(tmp_path):

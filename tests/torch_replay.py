@@ -76,6 +76,32 @@ def step_smaclite_reset_noise(k_env, n_envs, n_allies, n_enemies):
     return smaclite_reset_noise(_step_reset_keys(k_env, n_envs), n_allies, n_enemies)
 
 
+def smacv2_reset_noise(reset_keys, n_allies, n_enemies):
+    """A SMACv2 reset's draws (smaclite.py:404-453) as the port's nine
+    tensors (its ``reset_noise_spec``): each env splits its key four ways, draws
+    the ally and enemy types' uniforms from the third and fourth
+    (``jax.random.choice``), and splits the first six ways (ks, kr1, kr2,
+    kr3, kr4, kang) for the spawn coin, the reflected allies (kr1), the
+    reflected enemies' y (kr2) and x jitter (kr3), the surrounded allies'
+    normals (kr1 again), the ring's angles (kang) and radii (kr4)."""
+    A, E = n_allies, n_enemies
+
+    def one(key):
+        k1, _, k3, k4 = jax.random.split(key, 4)
+        ks, kr1, kr2, kr3, kr4, kang = jax.random.split(k1, 6)
+        u = jax.random.uniform
+        return (u(k3, (A,)), u(k4, (E,)), u(ks, (1,)), u(kr1, (A, 2)).ravel(), u(kr2, (E,)),
+                u(kr3, (E,)), jax.random.normal(kr1, (A, 2)).ravel(), u(kang, (E,)),
+                u(kr4, (E,)))
+
+    return tuple(torch.from_numpy(np.array(x)) for x in jax.vmap(one)(reset_keys))
+
+
+def step_smacv2_reset_noise(k_env, n_envs, n_allies, n_enemies):
+    """The SMACv2 reset draws of one ``VecEnv.step(…, k_env)``."""
+    return smacv2_reset_noise(_step_reset_keys(k_env, n_envs), n_allies, n_enemies)
+
+
 def gumbel_noise(key, shape):
     """The standard Gumbel draw of ``jax.random.categorical(key, logits)``
     with logits of ``shape`` (argmax(gumbel + logits), jax 0.9)."""
