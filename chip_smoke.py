@@ -5,9 +5,9 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, then the
-torch.profiler sessions of 10, 6, 8 and 16: a profiler session leaves the
-process slower, so every timed run comes before the first one.
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, then the
+torch.profiler sessions of 10, 6, 8, 16 and 17: a profiler session leaves
+the process slower, so every timed run comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -94,7 +94,25 @@ process slower, so every timed run comes before the first one.
    an FP HASAC block on 3m and an Ant iteration through unhealthy
    terminations on the card against the CPU (unit types, actions,
    availability, masks and bad masks equal); after every timed run, the
-   device ops of one Ant env step.
+   device ops of one Ant env step;
+17. drive the slice of the Bi-DexterousHands family and the 3D Humanoid
+   through the CLI on the repo's tuned configs as they are (only iterations
+   or blocks cut, no eval): (a) HAPPO on Humanoid 17x1, 2 iterations of 20
+   envs x 200 steps, at least one episode ending unhealthy; (b) HASAC on
+   HumanoidStandup 17x1 (n_step 10, buffer 1,000,000 rows), its warmup and 2
+   blocks, with the buffer's bytes on the card; (c) HAPPO on ShadowHandOver,
+   2 iterations of 256 envs x 75 steps, then one more rollout on whose GAE
+   inputs (T=75, b=256) the kernel is held against its plain version and
+   timed; (d) HASAC on ShadowHandLiftUnderarm (n_step 20, auto-alpha, buffer
+   1,000,000 rows), its warmup and 2 blocks, a fingertip pushing the pot
+   required; each prints env-steps/s, and the GAE kernel runs once an
+   iteration on (a) and (c), no kernel on (b) and (d); then (e) a small
+   Humanoid iteration through unhealthy terminations, a HumanoidStandup
+   reset and steps, a TwoCatchUnderarm iteration with the objects in
+   contact, a MetaMT4 reset drawing several layouts, a DoorOpenOutward HASAC
+   block and an Allegro reset and steps on the card against the CPU (flags,
+   layouts, masks and ``won`` equal); after every timed run, (f) the device
+   ops of one Humanoid and one ShadowHandOver env step.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1007,7 +1025,6 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
     the in-situ GAE numbers)."""
     from harl_tpu_torch import train
     from harl_tpu_torch.algos.hatrpo import HATRPOActor
-    from harl_tpu_torch.ops import gae_kernels as K
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
     from harl_tpu_torch.utils import checkpoint
     from harl_tpu_torch.utils.profiling import PhaseTimer
@@ -1094,6 +1111,16 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
     # one more rollout of the resumed runner, then the GAE kernel on its own
     # inputs against the plain version
     _, runner, (state,), _ = its2.calls[-1]
+    return launches, gae_in_situ("cli hatrpo", runner, state, (T, n, 5, 1), floor, card)
+
+
+def gae_in_situ(label: str, runner, state, shape: tuple, floor: dict, card: str) -> dict:
+    """One more rollout of an on-policy ``runner`` from ``state``, then the
+    GAE kernel on that rollout's own returns inputs (of ``shape``, T first)
+    held against its plain version and timed warm; its launches here are not
+    counted. Returns the kernel's numbers on those inputs."""
+    from harl_tpu_torch.ops import gae_kernels as K
+
     first_masks0 = state.carry.masks[:, 0]
     t0 = time.perf_counter()
     data = runner.rollout(state)
@@ -1104,9 +1131,11 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
                                    for x in runner.returns_inputs(state, data, first_masks0,
                                                                   c.share_obs, c.masks,
                                                                   c.critic_rnn))
+    if tuple(rewards.shape) != tuple(shape):
+        raise AssertionError(f"{label}: GAE inputs of shape {tuple(rewards.shape)}, expected "
+                             f"{tuple(shape)}")
+    T = shape[0]
     b = rewards.numel() // T
-    if tuple(rewards.shape) != (T, n, 5, 1):
-        raise AssertionError(f"GAE inputs of shape {tuple(rewards.shape)}")
     args = (rewards, values, masks, bad, runner.gamma, runner.gae_lambda)
     before = K.gae.launches
     out = K.gae(*args)
@@ -1117,11 +1146,11 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
     ms = time_warm(lambda: K.gae(*args), reps=200)[0]
     K.gae.launches = before
     bms, by = bound_ms("gae", T, b)
-    print(f"cli hatrpo rollout {rollout_s:.4f} s; gae on the path's own inputs (T={T}, b={b}): "
+    print(f"{label} rollout {rollout_s:.4f} s; gae on the path's own inputs (T={T}, b={b}): "
           f"kernel == plain (max |err| {err:.3g}, rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); "
           f"{ms * 1e3:.3f} us warm on the device, bound {bms * 1e3:.3f} us ({by}), share "
           f"{bms / ms:.3f}; empty launch {floor['ms'] * 1e3:.3f} us, on {card}", flush=True)
-    return launches, dict(T=T, b=b, ms=ms, max_abs_err=err, bound_ms=bms, bound_by=by)
+    return dict(T=T, b=b, ms=ms, max_abs_err=err, bound_ms=bms, bound_by=by)
 
 
 def cfg_model_widths(spy) -> list:
@@ -1285,14 +1314,15 @@ def unhealthy_watch() -> Watch:
 
 
 def drive_tuned_paths(card: str, log_dir: str, paths, shrink: dict = None,
-                      watches: dict = None) -> dict:
+                      watches: dict = None, last: dict = None) -> dict:
     """Tuned configs as they are (only iterations or blocks cut) through
     ``harl_tpu_torch.train.main``. ``paths`` holds (label, config, iterations
     or blocks, agents, off-policy, evaluate); ``watches`` maps a label to
     functions that make its ``Watch``es. Each path prints env-steps/s over its
     timed iterations or blocks after the first; the GAE kernel must run once
     an on-policy iteration and no kernel on an off-policy path. Returns the
-    launches by path."""
+    launches by path; ``last``, where given, gets each on-policy path's
+    runner and the state its last iteration returned."""
     from harl_tpu_torch import train
     from harl_tpu_torch.runners.off_policy import OffPolicyRunner
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
@@ -1323,6 +1353,8 @@ def drive_tuned_paths(card: str, log_dir: str, paths, shrink: dict = None,
         else:
             times = [c[0] for c in its.calls]
             widths = cfg_model_widths(its)
+            if last is not None:
+                last[label] = (its.calls[-1][1], its.calls[-1][3][0])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1411,23 +1443,27 @@ def sink_ant(env):
 
 
 def check_walker_against_cpu(devices=("cpu", "cuda"), label: str = "walker2d",
-                             env_updates=None, perturb=tip_walker) -> None:
-    """Phase 15 (f), Walker2d (and phase 16 (e), the Ant 4x2): one small
-    HAPPO iteration (16 envs x 10 steps) on the card and on the CPU from the
-    same parameters and noise, half the envs ``perturb``ed so that they end
-    unhealthy inside the rollout: masks and bad masks equal, floats close."""
+                             env_updates=None, perturb=tip_walker, env: str = "mamujoco_jax",
+                             unhealthy: bool = True) -> None:
+    """Phase 15 (f), Walker2d (and phase 16 (e), the Ant 4x2; phase 17 (e),
+    the Humanoid and TwoCatchUnderarm): one small HAPPO iteration (16 envs x
+    10 steps) of ``env`` on the card and on the CPU from the same parameters
+    and noise, half the envs ``perturb``ed (with ``unhealthy``, so that they
+    end unhealthy inside the rollout): masks and bad masks equal, floats
+    close."""
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
     from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
     from harl_tpu_torch.utils.noise import GeneratorNoise
 
     runs = []
     for dev in devices:
-        algo_args, env_args = get_defaults_yaml_args("happo", "mamujoco_jax")
+        algo_args, env_args = get_defaults_yaml_args("happo", env)
         algo_args["train"].update(n_rollout_threads=16, episode_length=10, num_env_steps=10 ** 9)
         algo_args["model"].update(hidden_sizes=[16, 16])
-        env_args.update(env_updates or dict(scenario="Walker2d-v2", agent_conf="2x3"),
-                        episode_limit=1000)
-        runner = OnPolicyRunner({"algo": "happo", "env": "mamujoco_jax"}, algo_args, env_args,
+        env_args.update(env_updates or dict(scenario="Walker2d-v2", agent_conf="2x3"))
+        if env == "mamujoco_jax":
+            env_args.update(episode_limit=1000)
+        runner = OnPolicyRunner({"algo": "happo", "env": env}, algo_args, env_args,
                                 device=dev, noise=GeneratorNoise(torch.Generator().manual_seed(6),
                                                                  dev))
         state = runner.init_state(0)
@@ -1449,7 +1485,7 @@ def check_walker_against_cpu(devices=("cpu", "cuda"), label: str = "walker2d",
         if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
             raise AssertionError(f"{label}: {k} differ on the card")
     ended = int(((d_cpu["next_masks"] == 0) & (d_cpu["next_bad_masks"] == 1)).sum())
-    if ended < 1:
+    if unhealthy and ended < 1:
         raise AssertionError(f"{label}: no env ended unhealthy in the small iteration")
     close = lambda a, b: torch.testing.assert_close(
         torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
@@ -1463,7 +1499,7 @@ def check_walker_against_cpu(devices=("cpu", "cuda"), label: str = "walker2d",
         for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
             close(va, vb)
     log(f"small {label} iteration: card == CPU (masks and bad masks equal, {ended} env steps "
-        f"ended unhealthy; floats at rtol {E2E_RTOL}, atol {E2E_ATOL})")
+        f"ended by a termination; floats at rtol {E2E_RTOL}, atol {E2E_ATOL})")
 
 
 def check_slice6_against_cpu(devices=("cpu", "cuda")) -> None:
@@ -1591,6 +1627,195 @@ def check_slice7_against_cpu(devices=("cpu", "cuda")) -> None:
                              sink_ant)
 
 
+# ------------------------- dexhands, Humanoid and HumanoidStandup (phase 17)
+HUMANOID_HAPPO = "tuned_configs/mamujoco_jax/Humanoid-v2-17x1/happo/config.json"
+STANDUP_HASAC = "tuned_configs/mamujoco_jax/HumanoidStandup-v2-17x1/hasac/config.json"
+HANDOVER_HAPPO = "tuned_configs/dexhands_jax/ShadowHandOver/happo/config.json"
+LIFT_HASAC = "tuned_configs/dexhands_jax/ShadowHandLiftUnderarm/hasac/config.json"
+# (label, config, iterations or blocks, agents, off-policy, evaluate)
+SLICE8_PATHS = (("humanoid_happo", HUMANOID_HAPPO, 2, 17, False, False),
+                ("humanoidstandup_hasac", STANDUP_HASAC, 2, 17, True, False),
+                ("shadowhandover_happo", HANDOVER_HAPPO, 2, 2, False, False),
+                ("liftunderarm_hasac", LIFT_HASAC, 2, 2, True, False))
+
+
+def tip_force_watch() -> Watch:
+    """Substeps of a table task in which the fingertips push an object: the
+    envs whose summed fingertip force on their objects is not zero,
+    recomputed from each substep's own inputs."""
+    from harl_tpu_torch.envs.dexhands_jax.handover import DT
+    from harl_tpu_torch.envs.dexhands_jax.manip import ShadowHandManip, tip_sphere_contact
+
+    def read(env, args, out):
+        theta, pos, vel, new_theta = args[0], args[4], args[5], out[0]
+        tips, tips_v = env._tips(new_theta, (new_theta - theta) / DT)
+        X = tips.shape[0]
+        f = tip_sphere_contact(tips.reshape(X, 1, -1, 3), tips_v.reshape(X, 1, -1, 3), pos, vel,
+                               env.radii[:, None])
+        return (torch.linalg.vector_norm(f, dim=-1).sum(dim=1) > 0).sum()[None]
+
+    def report(totals):
+        if not totals or totals[0] < 1:
+            raise AssertionError("no fingertip ever pushed the object")
+        return f"{totals[0]} env substeps with a nonzero fingertip force on the object"
+
+    return Watch(ShadowHandManip, "_substep", read, report)
+
+
+def drive_slice8_paths(card: str, log_dir: str, floor: dict, shrink: dict = None) -> tuple:
+    """Phase 17 (a)-(d): the tuned configs as they are (only iterations or
+    blocks cut, no eval) through ``harl_tpu_torch.train.main``: (a) HAPPO on
+    Humanoid 17x1 (20 envs x 200 steps, [128, 128, 128], fixed obs scaling),
+    2 iterations, an unhealthy termination required; (b) HASAC on
+    HumanoidStandup 17x1 ([256, 256], ``n_step`` 10, buffer 1,000,000 rows),
+    its 10,000-step warmup and 2 blocks; (c) HAPPO on ShadowHandOver (256
+    envs x 75 steps, [256, 256, 256], gamma 0.95), 2 iterations, then one
+    more rollout on whose GAE inputs (T=75, b=256) the kernel is held
+    against its plain version and timed; (d) HASAC on ShadowHandLiftUnderarm
+    (``n_step`` 20, auto-alpha, [256, 256], buffer 1,000,000 rows), its
+    warmup and 2 blocks, a fingertip pushing the pot required. Returns (the
+    launches by path: GAE once an iteration on (a) and (c), none on (b) and
+    (d); the GAE kernel's numbers on (c)'s inputs; a function that counts the
+    device ops of one Humanoid and one ShadowHandOver env step, for ``main``
+    to call after every timed run)."""
+    last = {}
+    by_path = drive_tuned_paths(card, log_dir, SLICE8_PATHS, shrink,
+                                {"humanoid_happo": (unhealthy_watch,),
+                                 "liftunderarm_hasac": (tip_force_watch,)}, last)
+    runner, state = last["shadowhandover_happo"]
+    T, n = runner.episode_length, runner.n_rollout_threads
+    in_situ = gae_in_situ("shadowhandover happo", runner, state, (T, n, 1), floor, card)
+
+    def profile(device="cuda"):
+        from harl_tpu_torch.envs import make_env
+        from harl_tpu_torch.envs.core import VecEnv
+        from harl_tpu_torch.utils.noise import GeneratorNoise
+
+        for label, env_name, args, X in (
+                ("humanoid 17x1", "mamujoco_jax",
+                 {"scenario": "Humanoid-v2", "agent_conf": "17x1", "obs_standardize": False}, 20),
+                ("shadowhandover", "dexhands_jax", {"task": "ShadowHandOver"}, 256)):
+            env = make_env(env_name, args, device)
+            vec = VecEnv(env, X)
+            noise = GeneratorNoise(torch.Generator(device=device).manual_seed(0), device)
+            st, _ = vec.reset(noise)
+            width = max(sp.shape[0] for sp in env.action_space)
+            actions = torch.zeros((X, env.n_agents, width), device=device)
+            step_ops, step_ms = count_device_ops(lambda: env.step(st, actions))
+            vec_ops, vec_ms = count_device_ops(lambda: vec.step(st, actions, noise))
+            print(f"{label} device ops ({X} envs): one env step {step_ops} ops, {step_ms:.3f} ms "
+                  f"device time; with the auto-reset {vec_ops} ops, {vec_ms:.3f} ms, on {card}",
+                  flush=True)
+
+    return by_path, in_situ, profile
+
+
+def lift_humanoid(env):
+    """Humanoid: half the torsos lifted past the 2.0 height bound, so that
+    they end unhealthy on their first step."""
+    q = env.q.clone()
+    q[::2, 2] = 2.3
+    return env._replace(q=q)
+
+
+def collide_objects(env):
+    """TwoCatchUnderarm: in half the envs the two objects overlap above the
+    thrower, closing in on each other."""
+    pos, vel = env.obj_pos.clone(), env.obj_vel.clone()
+    pos[::2, 1] = pos[::2, 0] + torch.tensor([0.06, 0.0, 0.0], device=pos.device)
+    vel[::2, 0, 0], vel[::2, 1, 0] = 0.5, -0.5
+    return env._replace(obj_pos=pos, obj_vel=vel)
+
+
+def small_dexhands_hasac_runner(algo: str, device, noise):
+    """HASAC on the hinge task DoorOpenOutward at small widths: the block
+    sizes of ``small_off_policy_runner``, episodes of 5 steps."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "dexhands_jax")
+    algo_args["train"].update(n_rollout_threads=16, num_env_steps=10 ** 9, warmup_steps=32,
+                              train_interval=4, update_per_train=1)
+    algo_args["algo"].update(batch_size=64, buffer_size=1000, n_step=3)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    return OffPolicyRunner({"algo": algo, "env": "dexhands_jax"}, algo_args,
+                           {"task": "ShadowHandDoorOpenOutward", "hands_episode_length": 5},
+                           device=device, noise=noise)
+
+
+def check_env_against_cpu(label: str, env_name: str, env_args: dict, steps: int,
+                          devices=("cpu", "cuda"), n_envs: int = 16) -> list:
+    """A reset and ``steps`` steps of random actions through the auto-reset
+    on the card and on the CPU, from the same draws (made on the CPU): the
+    states and the timesteps' floats at the E2E tolerance, their integers and
+    flags (dones, bad masks, ``won``, layouts, step counts) equal. Returns
+    the CPU's states."""
+    from harl_tpu_torch.envs import make_env
+    from harl_tpu_torch.envs.core import VecEnv
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    runs = []
+    for dev in devices:
+        env = make_env(env_name, env_args, dev)
+        vec = VecEnv(env, n_envs)
+        noise = GeneratorNoise(torch.Generator().manual_seed(7), dev)
+        gen = torch.Generator().manual_seed(8)
+        width = max(sp.shape[0] for sp in env.action_space)
+        state, ts = vec.reset(noise)
+        trace = [(state, ts)]
+        for _ in range(steps):
+            a = torch.rand((n_envs, env.n_agents, width), generator=gen) * 2.0 - 1.0
+            tr = vec.step(state, a.to(dev), noise)
+            state = tr.state
+            trace.append((state, tr.final))
+        runs.append(trace)
+    torch.cuda.synchronize()
+
+    def same(a, b, what):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=E2E_RTOL, atol=E2E_ATOL, msg=lambda m: f"{label} "
+                                       f"{what}: {m}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{label}: {what} differ on the card")
+
+    for i, ((s_cpu, t_cpu), (s_gpu, t_gpu)) in enumerate(zip(*runs)):
+        for name, a in s_gpu._asdict().items():
+            same(a, getattr(s_cpu, name), f"step {i} state {name}")
+        for name in ("obs", "share_obs", "rewards", "dones", "bad_transition"):
+            same(getattr(t_gpu, name), getattr(t_cpu, name), f"step {i} {name}")
+        for k, v in (t_gpu.metrics or {}).items():
+            same(v, t_cpu.metrics[k], f"step {i} {k}")
+    log(f"small {label} run (a reset and {steps} steps of {n_envs} envs): card == CPU (flags and "
+        f"integers equal, floats at rtol {E2E_RTOL}, atol {E2E_ATOL})")
+    return [s for s, _ in runs[0]]
+
+
+def check_slice8_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 17 (e): a Humanoid 17x1 HAPPO iteration through unhealthy
+    terminations, a HumanoidStandup reset and 4 steps, a TwoCatchUnderarm
+    HAPPO iteration with both objects in contact, a MetaMT4 reset that draws
+    several layouts, a DoorOpenOutward HASAC block and an Allegro reset and
+    4 steps, on the card against the CPU."""
+    check_walker_against_cpu(devices, "humanoid 17x1",
+                             {"scenario": "Humanoid-v2", "agent_conf": "17x1",
+                              "obs_standardize": False}, lift_humanoid)
+    check_env_against_cpu("humanoidstandup 17x1", "mamujoco_jax",
+                          {"scenario": "HumanoidStandup-v2", "agent_conf": "17x1"}, 4,
+                          devices, n_envs=8)
+    check_walker_against_cpu(devices, "twocatchunderarm", {"task": "ShadowHandTwoCatchUnderarm"},
+                             collide_objects, env="dexhands_jax", unhealthy=False)
+    states = check_env_against_cpu("metamt4", "dexhands_jax", {"task": "ShadowHandMetaMT4"}, 2,
+                                   devices)
+    layouts = set(states[0].layout.tolist())
+    if len(layouts) < 2:
+        raise AssertionError(f"metamt4: the reset drew the layouts {layouts} only")
+    check_off_policy_against_cpu("hasac", devices, make=small_dexhands_hasac_runner,
+                                 label="hasac dexhands door (hinge)")
+    check_env_against_cpu("allegrohandover", "dexhands_jax", {"task": "AllegroHandOver"}, 4,
+                          devices)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1630,13 +1855,20 @@ def main() -> int:
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     check_slice7_against_cpu()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        slice8, handover_gae, slice8_profile = drive_slice8_paths(card, log_dir, floor)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_slice8_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
     smac_profile()
     ant_profile()
+    slice8_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
-               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7}
+               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -1645,7 +1877,8 @@ def main() -> int:
         if name == "gae":
             if smac_launches["gae"] < 1:
                 raise AssertionError("gae was not launched on the SMACLite path")
-            extra = dict(smaclite_in_situ=smac_gae, cli_hatrpo_in_situ=cli_gae)
+            extra = dict(smaclite_in_situ=smac_gae, cli_hatrpo_in_situ=cli_gae,
+                         shadowhandover_in_situ=handover_gae)
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
             launches=sum(p[name] for p in by_path.values()),

@@ -1,12 +1,15 @@
 """Environment registry (counterpart of ``harl_tpu/envs/__init__.py``).
 
-Ported: the ``mamujoco_jax`` scenarios HalfCheetah, Walker2d, Hopper (planar)
-and Ant (3D), the MPE scenarios under ``pettingzoo_mpe``/``mpe`` (reference
+Ported: the ``mamujoco_jax`` scenarios HalfCheetah, Walker2d, Hopper (planar),
+Ant, Humanoid and HumanoidStandup (3D), the pure-tensor Bi-DexterousHands
+family under ``dexhands_jax`` and ``dexhands`` (the catch tasks of
+``handover.py``, the hinge and table tasks of ``manip.py``), the MPE scenarios under ``pettingzoo_mpe``/``mpe`` (reference
 names with their ``_v2``/``_v3`` suffix accepted), and the pure-tensor
 SMACLite under ``smaclite``, ``smac`` and ``smacv2``: the fixed
 compositions and SMACv2's randomized maps. ``smac`` and ``smacv2`` run
-SMACLite as the JAX package does when the StarCraft II packages are missing;
-``backend: native`` (the real game) raises. Every other env raises
+SMACLite as the JAX package does when the StarCraft II packages are missing,
+and ``dexhands`` the tensor hands where IsaacGym is missing; ``backend:
+native`` (the real game, IsaacGym) raises. Every other env raises
 ``NotImplementedError`` naming its roadmap item.
 """
 from __future__ import annotations
@@ -36,6 +39,10 @@ def make_env(env_name: str, env_args: dict, device: DeviceLike = None):
             from harl_tpu_torch.envs.mamujoco_jax.ant import make_ant
 
             return make_ant(env_args, resolve_device(device))
+        if scenario.startswith("Humanoid"):
+            from harl_tpu_torch.envs.mamujoco_jax.humanoid import make_humanoid
+
+            return make_humanoid(env_args, resolve_device(device))
         raise NotImplementedError(
             f"mamujoco_jax scenario {scenario!r} is not ported yet "
             "(ROADMAP.md, remaining pure-JAX envs)")
@@ -51,6 +58,20 @@ def make_env(env_name: str, env_args: dict, device: DeviceLike = None):
                   if k in env_args}
         return make_smaclite(env_args.get("map_name", "5m_vs_5m"), resolve_device(device),
                              **kwargs)
+    if env_name in ("dexhands", "dexhands_jax"):
+        if env_name == "dexhands" and env_args.get("backend", "auto") == "native":
+            raise NotImplementedError(
+                "dexhands backend 'native' (IsaacGym's Bi-DexterousHands): the port has no "
+                "host-env runner path yet (ROADMAP.md, tooling)")
+        from harl_tpu_torch.envs.dexhands_jax.manip import MANIP_TASKS
+
+        if env_args.get("task", "ShadowHandOver") in MANIP_TASKS:
+            from harl_tpu_torch.envs.dexhands_jax.manip import make_manip
+
+            return make_manip(env_args, resolve_device(device))
+        from harl_tpu_torch.envs.dexhands_jax.handover import make_handover
+
+        return make_handover(env_args, resolve_device(device))
     raise NotImplementedError(
         f"env {env_name!r} is not ported yet (ROADMAP.md, the remaining pure-JAX "
         "envs, tooling)")

@@ -136,23 +136,88 @@ def _point_table():
     return (np.array(legs), np.array(a), np.array(b), np.array(c), np.array(m))
 
 
-def _series_or_closed(theta: torch.Tensor, s: torch.Tensor):
-    """α, β and their first two derivatives in s, float64 (X,) each."""
-    sn, cs = torch.sin(theta), torch.cos(theta)
-    omc = 2.0 * torch.sin(0.5 * theta) ** 2            # 1 − cos θ without cancellation
-    t2, t3, t4 = theta ** 2, theta ** 3, theta ** 4
-    f1 = (theta * cs - sn) / t2                         # d/dθ sin θ/θ
-    f2 = -sn / theta - 2.0 * cs / t2 + 2.0 * sn / t3
-    g1 = sn / t2 - 2.0 * omc / t3                       # d/dθ (1 − cos θ)/θ²
-    g2 = cs / t2 - 4.0 * sn / t3 + 6.0 * omc / t4
-    closed = (sn / theta, f1 / (2 * theta), (f2 - f1 / theta) / (4 * t2),
-              omc / t2, g1 / (2 * theta), (g2 - g1 / theta) / (4 * t2))
-    series = (1 - s / 6 + s ** 2 / 120 - s ** 3 / 5040, -1 / 6 + s / 60 - s ** 2 / 1680,
-              1 / 60 - s / 840 + 0 * s,
-              0.5 - s / 24 + s ** 2 / 720 - s ** 3 / 40320, -1 / 24 + s / 360 - s ** 2 / 13440,
-              1 / 360 - s / 6720 + 0 * s)
-    small = theta < 1e-2
-    return [torch.where(small, a, b) for a, b in zip(series, closed)]
+def _coefficient_tables():
+    """α = sin θ/θ, β = (1 − cos θ)/θ² and their first two derivatives in
+    s = θ², as tables: closed forms Σ c·t·θ⁻ᵏ over t ∈ (sin θ, cos θ, 1 − cos θ)
+    and k = 0…6, (3, 7, 6); Taylor series in powers s⁰…s³ for small θ, (4, 6)."""
+    closed = np.zeros((3, 7, 6))
+    SN, CS, OMC = 0, 1, 2
+    closed[SN, 1, 0] = 1.0                                          # α
+    closed[CS, 2, 1], closed[SN, 3, 1] = 0.5, -0.5                  # α′
+    closed[SN, 3, 2], closed[CS, 4, 2], closed[SN, 5, 2] = -0.25, -0.75, 0.75   # α″
+    closed[OMC, 2, 3] = 1.0                                         # β
+    closed[SN, 3, 4], closed[OMC, 4, 4] = 0.5, -1.0                 # β′
+    closed[CS, 4, 5], closed[SN, 5, 5], closed[OMC, 6, 5] = 0.25, -1.25, 2.0    # β″
+    series = np.array([[1.0, -1 / 6, 1 / 60, 0.5, -1 / 24, 1 / 360],
+                       [-1 / 6, 1 / 60, -1 / 840, -1 / 24, 1 / 360, -1 / 6720],
+                       [1 / 120, -1 / 1680, 0.0, 1 / 720, -1 / 13440, 0.0],
+                       [-1 / 5040, 0.0, 0.0, -1 / 40320, 0.0, 0.0]])
+    return closed, series
+
+
+class RotvecFrame:
+    """The root's rotation R(r) = I + α(s)[r]ₓ + β(s)[r]ₓ² of a rotation
+    vector r (s = r·r + 1e-12, θ = √s) and its derivatives, on ``device``.
+    α, β and their first two derivatives in s are formed in float64 (series
+    below θ = 1e-2, where the closed forms cancel) and rounded to float32;
+    below θ = 1e-4 it is the JAX env's blend R = I + [r]ₓ."""
+
+    def __init__(self, device: torch.device):
+        closed, series = _coefficient_tables()
+        self.closed = torch.as_tensor(closed, device=device)
+        self.series = torch.as_tensor(series, device=device)
+        self.powers = torch.arange(7, dtype=torch.float64, device=device)
+        self.blend = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0], device=device)
+        self.e_skew = torch.as_tensor(np.stack([_skew(e) for e in np.eye(3)]).astype(np.float32),
+                                      device=device)                # [eᵢ]ₓ
+        self.eye = torch.eye(3, device=device)
+
+    def coefficients(self, r: torch.Tensor) -> torch.Tensor:
+        """(α, α′, α″, β, β′, β″) as (X, 6) float32 for r (X, 3)."""
+        s = (r * r).sum(dim=1) + 1e-12
+        s64 = s.double()
+        theta = torch.sqrt(s64)
+        trig = torch.stack([torch.sin(theta), torch.cos(theta),
+                            2.0 * torch.sin(0.5 * theta) ** 2], dim=1)   # 1 − cos θ, no cancellation
+        inv = theta[:, None] ** -self.powers
+        closed = torch.einsum("xt,xk,tkj->xj", trig, inv, self.closed)
+        series = (s64[:, None] ** self.powers[:4]) @ self.series
+        coef = torch.where((theta < 1e-2)[:, None], series, closed).float()
+        return torch.where((torch.sqrt(s) < 1e-4)[:, None], self.blend, coef)
+
+    def _skews(self, r: torch.Tensor):
+        outer = r[:, :, None] * r[:, None, :]
+        kr = torch.einsum("iab,xi->xab", self.e_skew, r)             # [r]ₓ
+        return kr, outer - (r * r).sum(dim=1)[:, None, None] * self.eye   # [r]ₓ²
+
+    def rotation(self, r: torch.Tensor) -> torch.Tensor:
+        """R(r) (X, 3, 3)."""
+        al, _, _, be, _, _ = self.coefficients(r)[:, :, None, None].unbind(1)
+        kr, kr2 = self._skews(r)
+        return self.eye + al * kr + be * kr2
+
+    def __call__(self, r: torch.Tensor, v: torch.Tensor):
+        """R(r), ∂R/∂rᵢ (X, 3, 3, 3), and R̈ = D²R[v, v] along v; r, v (X, 3)."""
+        al, al1, al2, be, be1, be2 = self.coefficients(r).unbind(1)
+        col = lambda x: x[:, None, None]
+        outer = lambda a, b: a[:, :, None] * b[:, None, :]
+        eye = self.eye
+        kr, kr2 = self._skews(r)
+        R = eye + col(al) * kr + col(be) * kr2
+        # ∂R/∂rᵢ = 2rᵢ(α′[r]ₓ + β′[r]ₓ²) + α[eᵢ]ₓ + β(r eᵢᵀ + eᵢ rᵀ − 2rᵢI), as (X, i, a, b)
+        sym = (r[:, None, :, None] * eye[None, :, None, :] + eye[None, :, :, None]
+               * r[:, None, None, :] - 2.0 * r[:, :, None, None] * eye)
+        dR = (2.0 * r[:, :, None, None] * (col(al1) * kr + col(be1) * kr2)[:, None]
+              + al[:, None, None, None] * self.e_skew + be[:, None, None, None] * sym)
+        # D²R[v, v]: s along v changes by σ = 2r·v, with second derivative 2v·v
+        sig = 2.0 * (r * v).sum(dim=1)
+        sdd = 2.0 * (v * v).sum(dim=1)
+        kv, kv2 = self._skews(v)
+        cross = outer(r, v) + outer(v, r) - col(sig) * eye    # [v]ₓ[r]ₓ + [r]ₓ[v]ₓ
+        Rdd = (col(al2 * sig * sig + al1 * sdd) * kr + col(2.0 * al1 * sig) * kv
+               + col(be2 * sig * sig + be1 * sdd) * kr2 + col(2.0 * be1 * sig) * cross
+               + col(2.0 * be) * kv2)
+        return R, dR, Rdd
 
 
 class AntState(NamedTuple):
@@ -191,7 +256,7 @@ class AntDynamics:
                        for leg in range(4)])
         self.kz, self.kz2 = f(kz), f(kz @ kz)
         self.ka, self.ka2 = f(ka), f(ka @ ka)
-        self.e_skew = f(np.stack([_skew(e) for e in np.eye(3)]))    # [eᵢ]ₓ
+        self.root = RotvecFrame(device)
         self.eye3 = torch.eye(3, device=device)
         self.diag_m = f(np.concatenate([np.zeros(6), np.full(N_JOINTS, ARMATURE)]) + 1e-8)
 
@@ -199,43 +264,12 @@ class AntDynamics:
         """float64 numpy → float32, as the JAX package stores it."""
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-    # ------------------------------------------------------ root rotation
-    def _root(self, r: torch.Tensor, v: torch.Tensor):
-        """R(r), ∂R/∂rᵢ (X, 3, 3, 3), and R̈ = D²R[v, v] along v; r, v (X, 3)."""
-        s = (r * r).sum(dim=1) + 1e-12
-        theta = torch.sqrt(s)
-        blend = theta < 1e-4                               # R = I + [r]ₓ there
-        al, al1, al2, be, be1, be2 = (
-            torch.where(blend, small, x.float()) for small, x in
-            zip((1.0, 0.0, 0.0, 0.0, 0.0, 0.0), _series_or_closed(theta.double(), s.double())))
-        col = lambda x: x[:, None, None]
-        outer = lambda a, b: a[:, :, None] * b[:, None, :]
-        kr = torch.einsum("iab,xi->xab", self.e_skew, r)   # [r]ₓ
-        kr2 = outer(r, r) - col((r * r).sum(dim=1)) * self.eye3
-        R = self.eye3 + col(al) * kr + col(be) * kr2
-        # ∂R/∂rᵢ = 2rᵢ(α′[r]ₓ + β′[r]ₓ²) + α[eᵢ]ₓ + β(r eᵢᵀ + eᵢ rᵀ − 2rᵢI), as (X, i, a, b)
-        eye = self.eye3
-        sym = (r[:, None, :, None] * eye[None, :, None, :] + eye[None, :, :, None]
-               * r[:, None, None, :] - 2.0 * r[:, :, None, None] * eye)
-        dR = (2.0 * r[:, :, None, None] * (col(al1) * kr + col(be1) * kr2)[:, None]
-              + al[:, None, None, None] * self.e_skew + be[:, None, None, None] * sym)
-        # D²R[v, v]: s along v changes by σ = 2r·v, with second derivative 2v·v
-        sig = 2.0 * (r * v).sum(dim=1)
-        sdd = 2.0 * (v * v).sum(dim=1)
-        kv = torch.einsum("iab,xi->xab", self.e_skew, v)
-        kv2 = outer(v, v) - col((v * v).sum(dim=1)) * eye
-        cross = outer(r, v) + outer(v, r) - col(sig) * eye    # [v]ₓ[r]ₓ + [r]ₓ[v]ₓ
-        Rdd = (col(al2 * sig * sig + al1 * sdd) * kr + col(2.0 * al1 * sig) * kv
-               + col(be2 * sig * sig + be1 * sdd) * kr2 + col(2.0 * be1 * sig) * cross
-               + col(2.0 * be) * kv2)
-        return R, dR, Rdd
-
     # --------------------------------------------------------- kinematics
     def kinematics(self, q: torch.Tensor, qd: torch.Tensor):
         """Point positions p (X, P, 3), J = ∂p/∂q (X, P, 3, 14) and
         a_bias = ∂(J q̇)/∂q · q̇ (X, P, 3) for q, q̇ (X, 14)."""
         X = q.shape[0]
-        R, dR, Rdd = self._root(q[:, 3:6], qd[:, 3:6])
+        R, dR, Rdd = self.root(q[:, 3:6], qd[:, 3:6])
         Rd = torch.einsum("xiab,xi->xab", dR, qd[:, 3:6])
         th, ta = q[:, self.q_hip], q[:, self.q_ankle]      # (X, 4) by leg
         sh, ch, sa, ca = (x[..., None, None] for x in (torch.sin(th), torch.cos(th),

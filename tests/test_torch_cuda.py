@@ -282,3 +282,60 @@ def test_smacv2_steps_on_the_card_equal_the_cpu(device, map_name):
         ends += int(trs[0].final.dones.all(dim=1).sum())
         states, ts = [tr.state for tr in trs], [tr.ts for tr in trs]
     assert ends >= X
+
+
+# (env, env_args, the height added to half the torsos): the Humanoid with half
+# its torsos lifted past the 2.0 bound (unhealthy on the first step), the
+# standup task, and dexhands tasks of each kind: two objects in flight, the
+# per-episode layouts, a hinge, two blocks on the table, the Allegro hands
+SLICE8_CASES = [("mamujoco_jax", {"scenario": "Humanoid-v2", "obs_standardize": False}, 1.0),
+                ("mamujoco_jax", {"scenario": "HumanoidStandup-v2"}, 0.0),
+                ("dexhands_jax", {"task": "ShadowHandTwoCatchUnderarm"}, 0.0),
+                ("dexhands_jax", {"task": "ShadowHandMetaMT4"}, 0.0),
+                ("dexhands_jax", {"task": "ShadowHandDoorOpenOutward"}, 0.0),
+                ("dexhands_jax", {"task": "ShadowHandBlockStack"}, 0.0),
+                ("dexhands_jax", {"task": "AllegroHandOver", "hands_episode_length": 5}, 0.0)]
+
+
+@pytest.mark.parametrize("env_name,env_args,lift", SLICE8_CASES,
+                         ids=[a.get("task", a.get("scenario")) for _, a, _ in SLICE8_CASES])
+def test_hands_and_humanoid_steps_on_the_card_match_the_cpu(device, env_name, env_args, lift):
+    """8 auto-reset steps of 32 envs with the same actions and reset draws on
+    both devices, each step taken on both from the CPU's state: the states
+    and observations at the planar tolerances (rtol 1e-4, atol 2e-4); dones,
+    truncations, ``won``, layouts and step counts equal. Each step starts
+    from the same state because the penalty contacts amplify a rounding
+    difference: one float32 ulp in BlockStack's block positions grows to 4
+    of the tolerance within two steps of random actions."""
+    from harl_tpu_torch.envs import core, make_env
+
+    envs = [make_env(env_name, env_args, device=d) for d in ("cpu", device)]
+    g, X = torch.Generator().manual_seed(2), 32
+    states = [e.reset(d)[0] for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g,
+                                                              envs))]
+    if lift:
+        states = [s._replace(q=s.q + lift * (torch.arange(X, device=s.q.device) % 2 == 0)[:, None]
+                             * torch.eye(23, device=s.q.device)[2]) for s in states]
+    width = max(sp.dim for sp in envs[0].action_space)
+    ends = 0
+    for _ in range(8):
+        a = torch.rand((X, envs[0].n_agents, width), generator=g) * 2.0 - 1.0
+        trs = [core.auto_reset_step(e, s, a.to(e.device), d) for e, s, d in
+               zip(envs, states, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+        c, gpu = trs
+        for k, v in gpu.state._asdict().items():
+            if v.dtype.is_floating_point:
+                torch.testing.assert_close(v.cpu(), getattr(c.state, k), rtol=1e-4, atol=2e-4)
+            else:
+                assert torch.equal(v.cpu(), getattr(c.state, k)), k
+        for k in ("obs", "share_obs", "rewards"):
+            torch.testing.assert_close(getattr(gpu.final, k).cpu(), getattr(c.final, k),
+                                       rtol=1e-4, atol=2e-4)
+        for k in ("dones", "bad_transition"):
+            assert torch.equal(getattr(gpu.final, k).cpu(), getattr(c.final, k)), k
+        for k, v in (c.final.metrics or {}).items():
+            assert torch.equal(gpu.final.metrics[k].cpu(), v), k
+        ends += int(c.final.dones.all(dim=1).sum())
+        states = [c.state, type(c.state)(*(x.to(device) for x in c.state))]
+    if lift or env_args.get("hands_episode_length"):
+        assert ends >= X // 2

@@ -57,7 +57,9 @@ def test_imports_no_jax_and_no_harl_tpu():
     names = _import_walk()
     for name in ("runners.on_policy", "runners.common", "train", "logging.logger",
                  "utils.checkpoint", "utils.profiling", "utils.config_tools", "algos.hatrpo",
-                 "envs.mamujoco_jax.ant", "envs.smaclite.smaclite", "buffers.off_policy"):
+                 "envs.mamujoco_jax.ant", "envs.smaclite.smaclite", "buffers.off_policy",
+                 "envs.mamujoco_jax.humanoid", "envs.dexhands_jax.handover",
+                 "envs.dexhands_jax.manip"):
         assert f"harl_tpu_torch.{name}" in names, names
     assert len(names) >= 20
 

@@ -136,11 +136,12 @@ def test_unported_envs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env("football_jax", {}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("mamujoco_jax", {"scenario": "Humanoid-v2"}, device="cpu")
+        make_env("mamujoco_jax", {"scenario": "manyagent_ant"}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_env("mamujoco_jax", {"scenario": "manyagent_swimmer"}, device="cpu")
-    # ported since: Walker2d and Hopper, and the 3D Ant (test_torch_ant.py),
-    # with their JAX defaults
+    # ported since: Walker2d and Hopper, the 3D Ant (test_torch_ant.py) and
+    # the Humanoid (test_torch_humanoid.py), with their JAX defaults
+    assert make_env("mamujoco_jax", {"scenario": "Humanoid-v2"}, device="cpu").n_agents == 17
     assert make_env("mamujoco_jax", {"scenario": "Walker2d-v2"}, device="cpu").n_agents == 2
     assert make_env("mamujoco_jax", {"scenario": "Hopper-v2"}, device="cpu").n_agents == 3
     assert make_env("mamujoco_jax", {"scenario": "Ant-v2"}, device="cpu").n_agents == 4

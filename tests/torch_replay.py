@@ -102,6 +102,52 @@ def step_smacv2_reset_noise(k_env, n_envs, n_allies, n_enemies):
     return smacv2_reset_noise(_step_reset_keys(k_env, n_envs), n_allies, n_enemies)
 
 
+def humanoid_reset_noise(reset_keys, dof=23):
+    """The Humanoid reset's draws (humanoid.py:384-393) as the port's two
+    uniforms on [0, 1), each (n, 23): each env splits its key in two."""
+    def one(key):
+        k1, k2 = jax.random.split(key)
+        return jax.random.uniform(k1, (dof,)), jax.random.uniform(k2, (dof,))
+
+    return tuple(np.asarray(x) for x in jax.vmap(one)(reset_keys))
+
+
+def handover_reset_noise(reset_keys, n_objects, n_layouts):
+    """The dexhands catch reset's draws (handover.py:375-410) as the port's
+    five: each env splits its key five ways for the layout (``randint``, as
+    (n, 1) integers), the object and goal position normals, the goal axis
+    normals (each (n, 3·n_obj)) and the goal angle's uniforms on [0, 1)."""
+    def one(key):
+        k0, k1, k2, k3, k4 = jax.random.split(key, 5)
+        return (jax.random.randint(k0, (1,), 0, n_layouts),
+                *(jax.random.normal(k, (n_objects, 3)).ravel() for k in (k1, k2, k3)),
+                jax.random.uniform(k4, (n_objects,)))
+
+    return tuple(np.asarray(x) for x in jax.vmap(one)(reset_keys))
+
+
+def manip_reset_noise(reset_keys, width):
+    """The dexhands manipulation reset's one normal draw (manip.py:296-315),
+    (n, 1) for a hinge angle or (n, 3·n_obj) for the table objects: each env
+    splits its key in two and draws from the first."""
+    shape = () if width == 1 else (width // 3, 3)
+    return (np.asarray(jax.vmap(lambda k: jax.random.normal(
+        jax.random.split(k)[0], shape).reshape(width))(reset_keys)),)
+
+
+def env_reset_noise(env, reset_keys):
+    """The JAX draws of ``env``'s reset (a port env) for any env that states
+    them in a form above, by its ``reset_noise_spec``."""
+    spec = env.reset_noise_spec
+    if spec[0][0] == "randint" and len(spec) == 5:
+        return handover_reset_noise(reset_keys, spec[-1][1], spec[0][2])
+    if len(spec) == 1:
+        return manip_reset_noise(reset_keys, spec[0][1])
+    if spec == (("uniform", 23), ("uniform", 23)):
+        return humanoid_reset_noise(reset_keys)
+    raise ValueError(f"no replay of the reset draws {spec}")
+
+
 def gumbel_noise(key, shape):
     """The standard Gumbel draw of ``jax.random.categorical(key, logits)``
     with logits of ``shape`` (argmax(gumbel + logits), jax 0.9)."""
