@@ -5,9 +5,9 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, then the
-torch.profiler sessions of 10, 6, 8, 16 and 17: a profiler session leaves
-the process slower, so every timed run comes before the first one.
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, then
+the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler session
+leaves the process slower, so every timed run comes before the first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -112,7 +112,23 @@ the process slower, so every timed run comes before the first one.
    contact, a MetaMT4 reset drawing several layouts, a DoorOpenOutward HASAC
    block and an Allegro reset and steps on the card against the CPU (flags,
    layouts, masks and ``won`` equal); after every timed run, (f) the device
-   ops of one Humanoid and one ShadowHandOver env step.
+   ops of one Humanoid and one ShadowHandOver env step;
+18. drive the slice of academy soccer, air combat and the manyagent
+   swimmer through the CLI on the repo's tuned configs as they are (only
+   iterations, blocks and eval episodes cut): (a) HAPPO on academy
+   3_vs_1_with_keeper, 2 iterations of 1024 envs x 128 steps and an
+   evaluation of 10 episodes (the config's 20 cut), with the episode ends
+   counted by kind (goal, lost, out, timeout; one that is not a timeout
+   required); (b) HAPPO on 2v2 air combat (MultiDiscrete(11, 11, 10)), 2
+   iterations of 1024 x 128, a downed aircraft required; each then one more
+   rollout on whose GAE inputs (T=128, b=1024) the kernel is held against its
+   plain version and timed; (c) HASAC on manyagent_swimmer 10x2 (buffer
+   1,000,000 rows), its warmup and 2 blocks, with the buffer's bytes; then
+   (d) small soccer (``simple`` and ``pixels``) and air-combat HAPPO
+   iterations, a MultiDiscrete HASAC block on air combat, and resets and
+   steps of the swimmer, Reacher, coupled_half_cheetah and the manyagent ant
+   on the card against the CPU (actions, masks, bad masks and flags equal);
+   after every timed run, (e) the device ops of one env step of each new env.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1816,6 +1832,174 @@ def check_slice8_against_cpu(devices=("cpu", "cuda")) -> None:
                           devices)
 
 
+# ----------------- academy soccer, air combat, swimmer and ants (phase 18)
+SOCCER_HAPPO = "tuned_configs/football_jax/academy_3_vs_1_with_keeper/happo/config.json"
+AIRCOMBAT_HAPPO = "tuned_configs/lag_jax/2v2/happo/config.json"
+SWIMMER_HASAC = "tuned_configs/mamujoco_jax/manyagent_swimmer-10x2/hasac/config.json"
+# (label, config, iterations or blocks, agents, off-policy, evaluate)
+SOCCER_PATH = (("soccer_happo", SOCCER_HAPPO, 2, 3, False, True),)
+SLICE9_PATHS = (("aircombat_happo", AIRCOMBAT_HAPPO, 2, 2, False, False),
+                ("swimmer_hasac", SWIMMER_HASAC, 2, 10, True, False))
+# the soccer evaluation, cut from the config's 20 episodes
+SOCCER_EVAL_EPISODES = 10
+
+
+def soccer_ends_watch() -> Watch:
+    """How the soccer episodes of a run ended: goal, lost possession, ball
+    out, timeout; at least one end that is not a timeout is required."""
+    from harl_tpu_torch.envs.football_jax.soccer import AcademySoccer
+
+    def read(env, args, out):
+        state, ts = out
+        done = ts.dones[:, 0]
+        goal = ts.metrics["won"] > 0
+        lost = (state.owner == 2) & ~goal
+        timeout = ts.bad_transition
+        ball_out = done & ~goal & ~lost & ~timeout
+        return torch.stack([goal.sum(), lost.sum(), ball_out.sum(), timeout.sum()])
+
+    def report(totals):
+        if not totals or sum(totals[:3]) < 1:
+            raise AssertionError(f"no soccer episode ended before its time limit: {totals}")
+        return "episode ends: {} goals, {} lost, {} out, {} timeouts".format(*totals)
+
+    return Watch(AcademySoccer, "step", read, report)
+
+
+def downed_watch() -> Watch:
+    """Aircraft shot down or flown out of the altitude band in a run:
+    allies and enemies; at least one is required."""
+    from harl_tpu_torch.envs.lag_jax.aircombat import AirCombat
+
+    def read(env, args, out):
+        gone = args[0].alive & ~out[0].alive
+        N = env.n_allies
+        return torch.stack([gone[:, :N].sum(), gone[:, N:].sum()])
+
+    def report(totals):
+        if not totals or sum(totals) < 1:
+            raise AssertionError("no aircraft was downed")
+        return f"aircraft downed: {totals[0]} allies, {totals[1]} enemies"
+
+    return Watch(AirCombat, "step", read, report)
+
+
+def drive_slice9_paths(card: str, log_dir: str, floor: dict, shrink: dict = None) -> tuple:
+    """Phase 18 (a)-(c): the tuned configs as they are (only iterations or
+    blocks cut) through ``harl_tpu_torch.train.main``: (a) HAPPO on academy
+    3_vs_1_with_keeper (1024 envs x 128 steps, [128, 128]), 2 iterations and
+    an evaluation of ``SOCCER_EVAL_EPISODES`` episodes (the config asks 20),
+    an episode end other than a timeout required; (b) HAPPO on 2v2 air
+    combat (1024 x 128, MultiDiscrete(11, 11, 10)), 2 iterations, a downed
+    aircraft required; each then one more rollout on whose GAE inputs
+    (T=128, b=1024) the kernel is held against its plain version and timed;
+    (c) HASAC on manyagent_swimmer 10x2 (20 envs, buffer 1,000,000 rows), its
+    10,000-step warmup and 2 blocks. Returns (the launches by path: GAE once
+    an iteration on (a) and (b), none on (c); the GAE kernel's numbers on the
+    inputs of (a) and (b); a function that counts the device ops of one env
+    step of each new env, for ``main`` to call after every timed run)."""
+    last = {}
+    by_path = drive_tuned_paths(card, log_dir, SOCCER_PATH,
+                                {**(shrink or {}), "eval_episodes": SOCCER_EVAL_EPISODES},
+                                {"soccer_happo": (soccer_ends_watch,)}, last)
+    by_path.update(drive_tuned_paths(card, log_dir, SLICE9_PATHS, shrink,
+                                     {"aircombat_happo": (downed_watch,)}, last))
+    in_situ = {}
+    for label in ("soccer_happo", "aircombat_happo"):
+        runner, state = last[label]
+        T, n = runner.episode_length, runner.n_rollout_threads
+        in_situ[label] = gae_in_situ(label.replace("_", " "), runner, state, (T, n, 1), floor,
+                                     card)
+
+    def profile(device="cuda"):
+        from harl_tpu_torch.envs import make_env
+        from harl_tpu_torch.envs.core import VecEnv
+        from harl_tpu_torch.utils import spaces
+        from harl_tpu_torch.utils.noise import GeneratorNoise
+
+        for label, env_name, args, X in (
+                ("soccer 3_vs_1", "football_jax", {}, 1024),
+                ("soccer 3_vs_1 pixels", "football_jax", {"representation": "pixels"}, 1024),
+                ("aircombat 2v2", "lag_jax", {}, 1024),
+                ("manyagent_swimmer 10x2", "mamujoco_jax",
+                 {"scenario": "manyagent_swimmer", "agent_conf": "10x2"}, 20),
+                ("reacher 2x1", "mamujoco_jax", {"scenario": "Reacher-v2"}, 256),
+                ("coupled_half_cheetah", "mamujoco_jax", {"scenario": "coupled_half_cheetah"},
+                 256),
+                ("manyagent_ant 2x3", "mamujoco_jax",
+                 {"scenario": "manyagent_ant", "agent_conf": "2x3"}, 256)):
+            env = make_env(env_name, args, device)
+            vec = VecEnv(env, X)
+            noise = GeneratorNoise(torch.Generator(device=device).manual_seed(0), device)
+            st, _ = vec.reset(noise)
+            sp = env.action_space[0]
+            if spaces.space_kind(sp) == "Box":
+                actions = torch.zeros((X, env.n_agents, sp.shape[0]), device=device)
+            else:
+                actions = torch.zeros((X, env.n_agents, sp.shape[0]), dtype=torch.long,
+                                      device=device)
+            step_ops, step_ms = count_device_ops(lambda: env.step(st, actions))
+            vec_ops, vec_ms = count_device_ops(lambda: vec.step(st, actions, noise))
+            print(f"{label} device ops ({X} envs): one env step {step_ops} ops, {step_ms:.3f} ms "
+                  f"device time; with the auto-reset {vec_ops} ops, {vec_ms:.3f} ms, on {card}",
+                  flush=True)
+
+    return by_path, in_situ, profile
+
+
+def dogfight(env):
+    """Air combat: in half the envs every aircraft within ~800 m of the
+    others at random headings, so that the guns engage."""
+    g = torch.Generator().manual_seed(3)
+    pos = env.pos.clone()
+    n = pos[::2].shape[:2]
+    pos[::2, :, :2] = (torch.rand(n + (2,), generator=g) * 1600.0 - 800.0).to(pos.device)
+    psi = env.psi.clone()
+    psi[::2] = (torch.rand(n, generator=g) * 6.2832 - 3.1416).to(psi.device)
+    return env._replace(pos=pos, psi=psi)
+
+
+def small_aircombat_hasac_runner(algo: str, device, noise):
+    """MultiDiscrete HASAC on 2v2 air combat at small widths: the block
+    sizes of ``small_off_policy_runner``, episodes of 5 steps, auto-α."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "lag_jax")
+    algo_args["train"].update(n_rollout_threads=16, num_env_steps=10 ** 9, warmup_steps=32,
+                              train_interval=4, update_per_train=1)
+    algo_args["algo"].update(batch_size=64, buffer_size=1000, n_step=3, auto_alpha=True)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    return OffPolicyRunner({"algo": algo, "env": "lag_jax"}, algo_args,
+                           {"scenario": "2v2", "episode_limit": 5}, device=device, noise=noise)
+
+
+def check_slice9_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 18 (d): small HAPPO iterations of academy soccer (``simple``,
+    and ``pixels`` through ``CNNBase``) and 2v2 air combat (MultiDiscrete,
+    half the envs in a dogfight), a MultiDiscrete HASAC block on air combat,
+    and resets and steps of the manyagent swimmer, Reacher,
+    coupled_half_cheetah and the manyagent ant, on the card against the CPU."""
+    same = lambda env: env
+    for label, args in (("soccer 3_vs_1", {"env_name": "academy_3_vs_1_with_keeper"}),
+                        ("soccer pixels", {"env_name": "academy_pass_and_shoot_with_keeper",
+                                           "representation": "pixels"})):
+        check_walker_against_cpu(devices, label, {**args, "episode_limit": 8}, same,
+                                 env="football_jax", unhealthy=False)
+    check_walker_against_cpu(devices, "aircombat 2v2", {"scenario": "2v2", "episode_limit": 8},
+                             dogfight, env="lag_jax", unhealthy=False)
+    check_off_policy_against_cpu("hasac", devices, make=small_aircombat_hasac_runner,
+                                 label="MultiDiscrete hasac aircombat 2v2")
+    for label, args, steps in (
+            ("manyagent_swimmer 10x2", {"scenario": "manyagent_swimmer", "agent_conf": "10x2",
+                                        "episode_limit": 3}, 5),
+            ("reacher 2x1", {"scenario": "Reacher-v2", "episode_limit": 3}, 5),
+            ("coupled_half_cheetah", {"scenario": "coupled_half_cheetah", "episode_limit": 3}, 5),
+            ("manyagent_ant 2x3", {"scenario": "manyagent_ant", "agent_conf": "2x3",
+                                   "episode_limit": 3}, 5)):
+        check_env_against_cpu(label, "mamujoco_jax", args, steps, devices, n_envs=8)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1861,14 +2045,22 @@ def main() -> int:
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     check_slice8_against_cpu()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        slice9, slice9_gae, slice9_profile = drive_slice9_paths(card, log_dir, floor)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_slice9_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
     smac_profile()
     ant_profile()
     slice8_profile()
+    slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
-               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8}
+               "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
+               **slice9}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -1878,7 +2070,9 @@ def main() -> int:
             if smac_launches["gae"] < 1:
                 raise AssertionError("gae was not launched on the SMACLite path")
             extra = dict(smaclite_in_situ=smac_gae, cli_hatrpo_in_situ=cli_gae,
-                         shadowhandover_in_situ=handover_gae)
+                         shadowhandover_in_situ=handover_gae,
+                         soccer_in_situ=slice9_gae["soccer_happo"],
+                         aircombat_in_situ=slice9_gae["aircombat_happo"])
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
             launches=sum(p[name] for p in by_path.values()),

@@ -9,8 +9,9 @@ what it needs and draws it from the runner's noise source
 (``utils/noise.py``): ``explore_noise`` for an exploration action,
 ``draw`` for HASAC's sample in an update, ``random_actions`` for the
 warmup. Box actions go to the env and the buffer as values, Discrete ones
-as indices (…, 1); HASAC hands the critic one-hot actions. MultiDiscrete
-actions raise, naming their roadmap item.
+as indices (…, 1), MultiDiscrete ones (HASAC only) as indices (…, k); HASAC
+hands the critic one-hot actions, a MultiDiscrete agent's as its
+sub-actions' one-hots side by side.
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ import torch
 from torch import nn
 
 from harl_tpu_torch.algos.common import adam
-from harl_tpu_torch.algos.q_critics import action_kind
 from harl_tpu_torch.models.policies import (DeterministicPolicy, SquashedGaussianPolicy,
                                             StochasticMlpPolicy)
 from harl_tpu_torch.models.values import DuelingQNet
 from harl_tpu_torch.ops import distributions as D
+from harl_tpu_torch.utils import spaces
 
 
 @dataclasses.dataclass
@@ -42,14 +43,17 @@ class _OffPolicyActor:
     kinds = ("Box",)
 
     def __init__(self, obs_dim: int, action_space, cfg: dict, device=None):
-        self.kind = action_kind(action_space)
+        self.kind = spaces.space_kind(action_space)
         if self.kind not in self.kinds:
             raise ValueError(f"{type(self).__name__} supports {self.kinds} action spaces, "
                              f"not {self.kind}")
         self.obs_dim = obs_dim
         self.action_space = action_space
         # width of the action in the env and the replay buffer
-        self.act_dim = action_space.shape[0] if self.kind == "Box" else 1
+        if self.kind == "Box":
+            self.act_dim = action_space.shape[0]
+        else:
+            self.act_dim = 1 if self.kind == "Discrete" else len(action_space.nvec)
         self.device = device
         self.lr = cfg["lr"]
         self.polyak = cfg["polyak"]
@@ -75,10 +79,14 @@ class _OffPolicyActor:
     def random_actions(self, noise, batch: int) -> torch.Tensor:
         """Uniform warmup actions: u·(high − low) + low from u on [0, 1),
         ``jax.random.uniform``'s arithmetic; a Discrete agent's index is
-        drawn from ``randint``."""
+        drawn from ``randint``, a MultiDiscrete agent's indices from one
+        ``randint`` a sub-action, in order (off_policy_actors.py:182-197)."""
         if self.kind == "Box":
             return noise.uniform((batch, self.act_dim)) * (self.high - self.low) + self.low
-        return noise.randint((batch, 1), self.action_space.n)
+        if self.kind == "Discrete":
+            return noise.randint((batch, 1), self.action_space.n)
+        return torch.stack([noise.randint((batch,), int(n)) for n in self.action_space.nvec],
+                           dim=-1)
 
 
 class HADDPGActor(_OffPolicyActor):
@@ -136,9 +144,11 @@ class HATD3Actor(HADDPGActor):
 class HASACActor(_OffPolicyActor):
     """Stochastic actor (hasac.py): a squashed Gaussian for Box actions
     (``act_limit`` is ``high[0]``), ``StochasticMlpPolicy`` with a
-    straight-through Gumbel-softmax over masked logits for Discrete ones."""
+    straight-through Gumbel-softmax over masked logits for Discrete ones,
+    and one per sub-head (unmasked) for MultiDiscrete ones
+    (off_policy_actors.py:137-180)."""
 
-    kinds = ("Box", "Discrete")
+    kinds = ("Box", "Discrete", "MultiDiscrete")
 
     def __init__(self, obs_dim: int, action_space, cfg: dict, device=None):
         super().__init__(obs_dim, action_space, cfg, device)
@@ -158,12 +168,16 @@ class HASACActor(_OffPolicyActor):
                                    self.activation_func, device=self.device,
                                    generator=generator, **self.policy_kwargs)
 
-    def draw(self, noise, batch: int) -> torch.Tensor:
+    def draw(self, noise, batch: int):
         """One sample's noise: standard normals (batch, d) for a Box,
-        standard Gumbels (batch, n) for a Discrete space."""
+        standard Gumbels (batch, n) for a Discrete space, and for a
+        MultiDiscrete one a list of standard Gumbels (batch, nᵢ), one a
+        sub-head in order."""
         if self.kind == "Box":
             return noise.action_noise((batch, self.act_dim))
-        return noise.gumbel_noise((batch, self.action_space.n))
+        if self.kind == "Discrete":
+            return noise.gumbel_noise((batch, self.action_space.n))
+        return [noise.gumbel_noise((batch, int(n))) for n in self.action_space.nvec]
 
     explore_noise = draw
 
@@ -172,21 +186,33 @@ class HASACActor(_OffPolicyActor):
 
     def get_actions_with_logprobs(self, net: nn.Module, obs: torch.Tensor, eps: torch.Tensor,
                                   available_actions: Optional[torch.Tensor] = None):
-        """(actions, log-probs (…, 1)) for ``eps`` of ``draw``: a Box's
-        actions scaled to act_limit; a Discrete space's straight-through
-        one-hot, with log-prob Σ onehot·logits of the masked logits
-        (hasac.py:59-77)."""
+        """(actions, log-probs) for ``eps`` of ``draw``: a Box's actions
+        scaled to act_limit, log-prob (…, 1); a Discrete space's
+        straight-through one-hot, with log-prob Σ onehot·logits of the masked
+        logits (hasac.py:59-77), (…, 1); a MultiDiscrete space's sub-heads'
+        one-hots side by side, with one such log-prob a sub-head (…, k)."""
         if self.kind == "Box":
             mu, log_std = net(obs)
             s = D.squashed_gaussian_sample(mu, log_std, eps, self.act_limit)
             return s.action, s.log_prob
+        if self.kind == "MultiDiscrete":
+            heads = net(obs)
+            onehots = [D.gumbel_softmax(logits, g, hard=True) for logits, g in zip(heads, eps)]
+            return (torch.cat(onehots, dim=-1),
+                    torch.cat([(oh * logits).sum(dim=-1, keepdim=True)
+                               for oh, logits in zip(onehots, heads)], dim=-1))
         logits = self._logits(net, obs, available_actions)
         onehot = D.gumbel_softmax(logits, eps, hard=True)
         return onehot, (onehot * logits).sum(dim=-1, keepdim=True)
 
     def get_actions(self, net: nn.Module, obs: torch.Tensor, eps: torch.Tensor,
                     available_actions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Env-facing actions: a Box's values, a Discrete space's index (…, 1)."""
+        """Env-facing actions: a Box's values, a Discrete space's index
+        (…, 1), a MultiDiscrete space's indices (…, k)."""
+        if self.kind == "MultiDiscrete":
+            return torch.cat([torch.argmax(D.gumbel_softmax(logits, g, hard=True), dim=-1,
+                                           keepdim=True) for logits, g in zip(net(obs), eps)],
+                             dim=-1)
         a, _ = self.get_actions_with_logprobs(net, obs, eps, available_actions)
         return a if self.kind == "Box" else torch.argmax(a, dim=-1, keepdim=True)
 
@@ -198,6 +224,9 @@ class HASACActor(_OffPolicyActor):
             mu, log_std = net(obs)
             return D.squashed_gaussian_sample(mu, log_std, None, self.act_limit,
                                               deterministic=True).action
+        if self.kind == "MultiDiscrete":
+            return torch.cat([torch.argmax(D.onehot_from_logits(logits), dim=-1, keepdim=True)
+                              for logits in net(obs)], dim=-1)
         onehot = D.onehot_from_logits(self._logits(net, obs, available_actions))
         return torch.argmax(onehot, dim=-1, keepdim=True)
 

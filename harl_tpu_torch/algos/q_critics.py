@@ -9,7 +9,8 @@
   * ``SoftTwinContinuousQCritic`` — the SAC target r + γⁿ(min Q′ − α·logπ′)
     (1 − term), optional ValueNorm on the targets (updated on the
     de-normalised targets, then applied), Huber loss, critic-side auto-α;
-    a Discrete agent's action enters the joint action one-hot;
+    a Discrete agent's action enters the joint action one-hot, a
+    MultiDiscrete agent's as the concatenated one-hots of its sub-actions;
   * ``DiscreteQCritic`` — HAD3QN's one ``DuelingQNet`` over the joint action
     space ∏ nᵢ, with the mixed-radix joint ↔ individual codecs and an MSE
     TD step.
@@ -20,7 +21,6 @@ fields are agent-major (N·batch, ·), so the joint actions, next joint actions
 and next log-probabilities are tiled N times over the rows, and the soft
 critic with ``use_policy_active_masks`` averages its loss over valid
 transitions only (soft_twin_continuous_q_critic.py:128-147, 175-237).
-MultiDiscrete actions raise, naming their roadmap item.
 """
 from __future__ import annotations
 
@@ -39,24 +39,31 @@ from harl_tpu_torch.ops.value_norm import (ValueNormState, denormalize, init_val
                                            normalize, update_value_norm)
 from harl_tpu_torch.utils import spaces
 
-MULTI_DISCRETE_TODO = ("MultiDiscrete off-policy actions are not ported yet (ROADMAP.md, "
-                       "Queue A: MultiDiscrete heads)")
-
-
-def action_kind(space) -> str:
-    """"Box" or "Discrete"; MultiDiscrete raises, naming its roadmap item."""
+def onehot_dim(space) -> int:
+    """An agent's width in the joint action: a Box's dim, a Discrete's n,
+    a MultiDiscrete's Σ nvec (off_policy_actors.py:125-132)."""
     kind = spaces.space_kind(space)
-    if kind == "MultiDiscrete":
-        raise NotImplementedError(MULTI_DISCRETE_TODO)
-    return kind
+    if kind == "Box":
+        return space.shape[0]
+    if kind == "Discrete":
+        return space.n
+    return int(sum(space.nvec))
 
 
 def encode_joint_actions(actions, act_spaces) -> torch.Tensor:
     """The agents' buffer actions as one joint action: Box actions as they
-    are, a Discrete agent's index one-hot (soft_twin_continuous_q_critic.py:107-127)."""
-    return torch.cat([a if action_kind(sp) == "Box"
-                      else F.one_hot(a[..., 0].long(), sp.n).to(torch.float32)
-                      for a, sp in zip(actions, act_spaces)], dim=-1)
+    are, a Discrete agent's index one-hot, a MultiDiscrete agent's indices
+    as their one-hots side by side (q_critics.py:39-59)."""
+    enc = []
+    for a, sp in zip(actions, act_spaces):
+        kind = spaces.space_kind(sp)
+        if kind == "Box":
+            enc.append(a)
+        else:
+            ns = (sp.n,) if kind == "Discrete" else sp.nvec
+            enc += [F.one_hot(a[..., i].long(), int(n)).to(torch.float32)
+                    for i, n in enumerate(ns)]
+    return torch.cat(enc, dim=-1)
 
 
 @dataclasses.dataclass
@@ -91,9 +98,7 @@ class ContinuousQCritic:
         self.fp_agents = cfg.get("_fp_agents", 1)
         self.hidden_sizes = tuple(cfg["hidden_sizes"])
         self.activation_func = cfg.get("activation_func", "relu")
-        # an agent's width in the joint action: a Box's dim, a Discrete's n
-        self.joint_dim = sum(sp.shape[0] if action_kind(sp) == "Box" else sp.n
-                             for sp in act_spaces)
+        self.joint_dim = sum(onehot_dim(sp) for sp in act_spaces)
 
     def init(self, generator: Optional[torch.Generator] = None) -> QCriticState:
         nets = nn.ModuleList(

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -32,6 +33,18 @@ class TimeStep(NamedTuple):
     available_actions: Optional[torch.Tensor] = None  # (X, n_agents, n_actions)
     agent_state: Optional[torch.Tensor] = None        # (X, n_agents, ds_fp) — FP state
     metrics: Optional[Dict[str, torch.Tensor]] = None  # per env, e.g. {"won": (X,)}
+
+
+def linspace32(start: float, stop: float, n: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, n)``'s float32 form start·(1 − t) + stop·t
+    with t = i·(1/(n − 1)), the endpoint exact. The JAX envs' jitted
+    ``jnp.linspace`` equals it for short lines (up to 7 points from ±1000)
+    and differs by an ulp or two here and there in longer ones."""
+    f = np.float32
+    if n == 1:
+        return np.array([start], np.float32)
+    t = np.arange(n - 1, dtype=np.float32) * (f(1) / f(n - 1))
+    return np.append(f(start) * (f(1) - t) + f(stop) * t, f(stop)).astype(np.float32)
 
 
 class Transition(NamedTuple):

@@ -104,6 +104,31 @@ def _skew(k) -> np.ndarray:
     return np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
 
 
+class LeggedBody(NamedTuple):
+    """A rigid root with legs of a z hip and an ankle about a fixed axis,
+    as point tables: per point (the JAX ``_points`` order) its leg, the
+    constant vectors a, b, c of w = a + R_z(θ_hip)·b + R_z·R_axis(θ_ankle)·c
+    and its mass; per leg its hip and ankle q index and ankle axis; the
+    contact points (indices) and radii; per joint its range."""
+
+    legs: np.ndarray          # (P,) leg of each point
+    a: np.ndarray             # (P, 3)
+    b: np.ndarray
+    c: np.ndarray
+    masses: np.ndarray        # (P,)
+    q_hip: Tuple[int, ...]    # per leg
+    q_ankle: Tuple[int, ...]
+    ankle_axis: np.ndarray    # (legs, 3) unit axes
+    contact_idx: Tuple[int, ...]
+    contact_radii: Tuple[float, ...]
+    q_lo: Tuple[float, ...]   # per joint, in q order
+    q_hi: Tuple[float, ...]
+
+    @property
+    def n_joints(self) -> int:
+        return len(self.q_lo)
+
+
 def _point_table():
     """Per point (the JAX ``_points`` order): its leg, the constant vectors
     a, b, c of w = a + R_z·b + R_z·R_axis·c, and its mass."""
@@ -226,39 +251,50 @@ class AntState(NamedTuple):
     t: torch.Tensor    # (X,) int32
 
 
-class AntDynamics:
-    """The batched 3D ant physics on ``device``."""
+def ant_body() -> LeggedBody:
+    """The Ant's tables: 43 points, contacts on the torso and the 4 feet."""
+    legs, a, b, c, m = _point_table()
+    lo, hi = zip(*[ANKLE_RANGE[leg] if ank else HIP_RANGE for leg, ank in ACTUATORS])
+    axes = np.stack([np.asarray(ANKLE_AXIS[leg]) / np.linalg.norm(ANKLE_AXIS[leg])
+                     for leg in range(4)])
+    return LeggedBody(legs, a, b, c, m, Q_HIP, Q_ANKLE, axes,
+                      (0,) + tuple(7 + 9 * k + 8 for k in range(4)), (TORSO_R,) + (CAP_R,) * 4,
+                      lo, hi)
 
-    def __init__(self, device: torch.device):
+
+class AntDynamics:
+    """The batched physics of a legged body (the Ant's unless given) on
+    ``device``."""
+
+    def __init__(self, device: torch.device, body: LeggedBody = None):
         self.device = device
+        body = ant_body() if body is None else body
+        self.n_joints = n_joints = body.n_joints
         f = self._const
-        legs, a, b, c, m = _point_table()
+        legs, b, c = body.legs, body.b, body.c
         self.legs = torch.as_tensor(legs, device=device)
-        self.pa, self.pb, self.pc, self.masses = f(a), f(b), f(c), f(m)
-        self.contact_idx = torch.as_tensor([0] + [7 + 9 * k + 8 for k in range(4)],
-                                           device=device)
-        self.contact_radii = f([TORSO_R] + [CAP_R] * 4)
-        self.q_hip = torch.as_tensor(Q_HIP, device=device)
-        self.q_ankle = torch.as_tensor(Q_ANKLE, device=device)
-        lo, hi = zip(*[ANKLE_RANGE[leg] if ank else HIP_RANGE for leg, ank in ACTUATORS])
-        self.q_lo, self.q_hi = f(lo), f(hi)
+        self.pa, self.pb, self.pc, self.masses = f(body.a), f(b), f(c), f(body.masses)
+        self.contact_idx = torch.as_tensor(body.contact_idx, device=device)
+        self.contact_radii = f(body.contact_radii)
+        self.q_hip = torch.as_tensor(body.q_hip, device=device)
+        self.q_ankle = torch.as_tensor(body.q_ankle, device=device)
+        self.q_lo, self.q_hi = f(body.q_lo), f(body.q_hi)
         # a point's hip and ankle columns of J (a point moves with its own
         # leg's joints, torso points with none)
         moves = (np.abs(b).sum(1) + np.abs(c).sum(1)) > 0
-        hip_col = np.zeros((len(legs), N_JOINTS))
-        ank_col = np.zeros((len(legs), N_JOINTS))
+        hip_col = np.zeros((len(legs), n_joints))
+        ank_col = np.zeros((len(legs), n_joints))
         for p, leg in enumerate(legs):
-            hip_col[p, Q_HIP[leg] - 6] = moves[p]
-            ank_col[p, Q_ANKLE[leg] - 6] = moves[p]
+            hip_col[p, body.q_hip[leg] - 6] = moves[p]
+            ank_col[p, body.q_ankle[leg] - 6] = moves[p]
         self.hip_col, self.ank_col = f(hip_col), f(ank_col)
         kz = _skew((0.0, 0.0, 1.0))
-        ka = np.stack([_skew(np.asarray(ANKLE_AXIS[leg]) / np.linalg.norm(ANKLE_AXIS[leg]))
-                       for leg in range(4)])
+        ka = np.stack([_skew(axis) for axis in body.ankle_axis])
         self.kz, self.kz2 = f(kz), f(kz @ kz)
         self.ka, self.ka2 = f(ka), f(ka @ ka)
         self.root = RotvecFrame(device)
         self.eye3 = torch.eye(3, device=device)
-        self.diag_m = f(np.concatenate([np.zeros(6), np.full(N_JOINTS, ARMATURE)]) + 1e-8)
+        self.diag_m = f(np.concatenate([np.zeros(6), np.full(n_joints, ARMATURE)]) + 1e-8)
 
     def _const(self, x) -> torch.Tensor:
         """float64 numpy → float32, as the JAX package stores it."""
@@ -266,15 +302,15 @@ class AntDynamics:
 
     # --------------------------------------------------------- kinematics
     def kinematics(self, q: torch.Tensor, qd: torch.Tensor):
-        """Point positions p (X, P, 3), J = ∂p/∂q (X, P, 3, 14) and
-        a_bias = ∂(J q̇)/∂q · q̇ (X, P, 3) for q, q̇ (X, 14)."""
+        """Point positions p (X, P, 3), J = ∂p/∂q (X, P, 3, dof) and
+        a_bias = ∂(J q̇)/∂q · q̇ (X, P, 3) for q, q̇ (X, dof)."""
         X = q.shape[0]
         R, dR, Rdd = self.root(q[:, 3:6], qd[:, 3:6])
         Rd = torch.einsum("xiab,xi->xab", dR, qd[:, 3:6])
-        th, ta = q[:, self.q_hip], q[:, self.q_ankle]      # (X, 4) by leg
+        th, ta = q[:, self.q_hip], q[:, self.q_ankle]      # (X, legs)
         sh, ch, sa, ca = (x[..., None, None] for x in (torch.sin(th), torch.cos(th),
                                                          torch.sin(ta), torch.cos(ta)))
-        rz = self.eye3 + sh * self.kz + (1.0 - ch) * self.kz2           # (X, 4, 3, 3)
+        rz = self.eye3 + sh * self.kz + (1.0 - ch) * self.kz2           # (X, legs, 3, 3)
         drz, ddrz = ch * self.kz + sh * self.kz2, -sh * self.kz + ch * self.kz2
         ra = self.eye3 + sa * self.ka + (1.0 - ca) * self.ka2
         dra, ddra = ca * self.ka + sa * self.ka2, -sa * self.ka + ca * self.ka2
@@ -296,13 +332,13 @@ class AntDynamics:
         p = q[:, None, 0:3] + rot(R, w)
         j_rot = torch.einsum("xiab,xpb->xpai", dR, w)
         j_joint = (rot(R, dw_h)[..., None] * self.hip_col[:, None]
-                   + rot(R, dw_a)[..., None] * self.ank_col[:, None])     # (X, P, 3, 8)
+                   + rot(R, dw_a)[..., None] * self.ank_col[:, None])     # (X, P, 3, joints)
         J = torch.cat([self.eye3.expand(X, p.shape[1], 3, 3), j_rot, j_joint], dim=-1)
         a_bias = rot(Rdd, w) + 2.0 * rot(Rd, wdot) + rot(R, wddot)
         return p, J, a_bias
 
     def mass_matrix(self, J: torch.Tensor) -> torch.Tensor:
-        """Σ mᵢ JᵢᵀJᵢ + diag(armature) + 1e-8·I (X, 14, 14), in J's dtype."""
+        """Σ mᵢ JᵢᵀJᵢ + diag(armature) + 1e-8·I (X, dof, dof), in J's dtype."""
         return (torch.einsum("p,xpci,xpcj->xij", self.masses.to(J.dtype), J, J)
                 + torch.diag(self.diag_m.to(J.dtype)))
 

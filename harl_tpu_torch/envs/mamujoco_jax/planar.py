@@ -375,8 +375,11 @@ class PlanarDynamics:
         Jp = Jo[:, cb] + torch.einsum("xpc,pj->xpcj", drp, self.kin_Gc)
         return Jc, Cc, cpos, Jp
 
-    def substep(self, q: torch.Tensor, qd: torch.Tensor, tau: torch.Tensor):
-        """One implicit-damping Euler substep; q, qd (X, dof), tau (X, n_joints)."""
+    def substep(self, q: torch.Tensor, qd: torch.Tensor, tau: torch.Tensor,
+                root_force: Optional[torch.Tensor] = None):
+        """One implicit-damping Euler substep; q, qd (X, dof), tau (X, n_joints).
+        ``root_force`` (X, 2) is an optional external force on the root's
+        (x, z), the coupled cheetahs' tendon (planar.py:474-495)."""
         spec = self.spec
         dt = spec.dt
         Jc, Cc, p, Jp = self.kin_analytic(q, qd)
@@ -385,6 +388,8 @@ class PlanarDynamics:
         corio = torch.einsum("b,xbci,xbc->xi", self.masses, Jc, Cc)
         Q = -GRAVITY * torch.einsum("b,xbi->xi", self.masses, Jc[:, :, 1])
         Q = torch.cat([Q[:, :3], Q[:, 3:] + self.gears * tau], dim=1)
+        if root_force is not None:
+            Q = torch.cat([Q[:, :2] + root_force, Q[:, 2:]], dim=1)
         Q = Q - self.joint_stiff * q
         over = torch.clamp(q - self.q_hi, min=0.0) - torch.clamp(self.q_lo - q, min=0.0)
         outside = (over != 0.0).to(q.dtype)

@@ -1,9 +1,9 @@
 """Policy models (counterpart of ``harl_tpu/models/policies.py``).
 
-``StochasticPolicy``: MLPBase → optional GRU → ACTLayer. The CNN path is on
-the roadmap. The off-policy actors: ``SquashedGaussianPolicy`` (HASAC, Box)
+``StochasticPolicy``: MLPBase, or CNNBase for (H, W, C) observations →
+optional GRU → ACTLayer. The off-policy actors: ``SquashedGaussianPolicy`` (HASAC, Box)
 and ``DeterministicPolicy`` (HADDPG/HATD3/MADDPG/MATD3), on ``PlainMLP``,
-and ``StochasticMlpPolicy`` (HASAC, Discrete): MLPBase → ACTLayer.
+and ``StochasticMlpPolicy`` (HASAC, Discrete and MultiDiscrete): MLPBase → ACTLayer.
 """
 from __future__ import annotations
 
@@ -13,8 +13,20 @@ import torch
 from torch import nn
 
 from harl_tpu_torch.models.act import ACTLayer
+from harl_tpu_torch.models.cnn import CNNBase
 from harl_tpu_torch.models.mlp import MLPBase, PlainMLP, lecun_normal_, make_linear
 from harl_tpu_torch.models.rnn import GRUStack
+
+
+def make_base(obs_dim, hidden_sizes, activation_func, use_feature_normalization,
+              initialization_method, device, generator) -> nn.Module:
+    """The torso: ``MLPBase`` for an int ``obs_dim``, ``CNNBase`` for an
+    (H, W, C) shape (stochastic_policy.py:34-36, v_net.py:30-32)."""
+    if isinstance(obs_dim, (tuple, list)):
+        return CNNBase(tuple(obs_dim), hidden_sizes, activation_func, initialization_method,
+                       device=device, generator=generator)
+    return MLPBase(obs_dim, hidden_sizes, activation_func, use_feature_normalization,
+                   initialization_method, device, generator)
 
 
 def recurrent_inputs(x: torch.Tensor, rnn_states: Optional[torch.Tensor],
@@ -29,20 +41,21 @@ def recurrent_inputs(x: torch.Tensor, rnn_states: Optional[torch.Tensor],
 
 
 class StochasticPolicy(nn.Module):
-    """MLPBase → optional GRU → ACTLayer (stochastic_policy.py:14-86).
+    """MLPBase (or CNNBase) → optional GRU → ACTLayer
+    (stochastic_policy.py:14-86). ``obs_dim`` is an int, or (H, W, C) for
+    pixel observations.
 
     ``forward(obs, rnn_states, masks, seq)`` → (head outputs, new rnn
     states); the states pass through unchanged (None) without a GRU."""
 
-    def __init__(self, obs_dim: int, action_space, hidden_sizes: Sequence[int] = (128, 128),
+    def __init__(self, obs_dim, action_space, hidden_sizes: Sequence[int] = (128, 128),
                  activation_func: str = "relu", use_feature_normalization: bool = True,
                  initialization_method: str = "orthogonal_", gain: float = 0.01,
                  use_recurrent_policy: bool = False, recurrent_n: int = 1,
                  std_x_coef: float = 1.0, device=None, generator=None):
         super().__init__()
-        self.base = MLPBase(obs_dim, hidden_sizes, activation_func,
-                            use_feature_normalization, initialization_method,
-                            device, generator)
+        self.base = make_base(obs_dim, hidden_sizes, activation_func, use_feature_normalization,
+                              initialization_method, device, generator)
         self.rnn = (GRUStack(hidden_sizes[-1], hidden_sizes[-1], recurrent_n, device, generator)
                     if use_recurrent_policy else None)
         self.act = ACTLayer(hidden_sizes[-1], action_space, initialization_method,

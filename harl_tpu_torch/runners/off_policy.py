@@ -34,8 +34,8 @@ train blocks, a log record (with an evaluation under ``use_eval``) every
 intervals, keeping the newest two (the state holds the replay buffer), and a
 resume from ``model_dir``.
 
-Ported: the EP and FP states, Box and Discrete actions, pure-tensor envs.
-``share_param``, MultiDiscrete actions, host envs and meshes raise
+Ported: the EP and FP states, Box, Discrete and (HASAC) MultiDiscrete
+actions, pure-tensor envs. ``share_param``, host envs and meshes raise
 ``NotImplementedError`` naming their roadmap item.
 
 Randomness comes from one ``torch.Generator`` per runner on its device, and
@@ -43,16 +43,19 @@ one on the host for the agent orders, both seeded by ``init_state(seed)``,
 through a noise source (``utils/noise.py``). Its draws, in order:
 
   init_state      the env reset;
-  warmup, a step  per agent ``uniform((B, d_i))`` (Box) or ``randint((B, 1), n_i)``
-                  (Discrete), then the env's reset draws;
+  warmup, a step  per agent ``uniform((B, d_i))`` (Box), ``randint((B, 1), n_i)``
+                  (Discrete) or one ``randint((B,), n_ij)`` a sub-action
+                  (MultiDiscrete), then the env's reset draws;
   collect, a step per agent its exploration draws, then the env's reset draws:
                   ``action_noise((B, d_i))`` (Box), HASAC's
-                  ``gumbel_noise((B, n_i))`` (Discrete), HAD3QN's
+                  ``gumbel_noise((B, n_i))`` (Discrete) or one
+                  ``gumbel_noise((B, n_ij))`` a sub-head (MultiDiscrete), HAD3QN's
                   ``randint((B, 1), n_i)`` and ``uniform((B, 1))``;
   train, an update
                   ``indices(batch_size, rows written)``; the next-action
                   draws of HASAC (normals (batch, d_i), or Gumbels
-                  (batch, n_i)) or target smoothing normals (HATD3, MATD3)
+                  (batch, n_i), one a sub-head for MultiDiscrete) or target
+                  smoothing normals (HATD3, MATD3)
                   in agent order; then, on a policy step, HASAC's
                   initial-action draws in agent order, the agent permutation
                   (HA algorithms and HAD3QN, unless ``fixed_order``), and
@@ -93,8 +96,6 @@ CRITIC_REGISTRY = {"haddpg": ContinuousQCritic, "maddpg": ContinuousQCritic,
                    "hasac": SoftTwinContinuousQCritic, "had3qn": DiscreteQCritic}
 MA_ALGOS = ("maddpg", "matd3")          # simultaneous updates with buffer actions
 SMOOTHED = ("hatd3", "matd3")           # target smoothing noise
-# envs the JAX package steps on the host (real MuJoCo, GRF)
-HOST_ENVS = ("mamujoco", "football")
 
 
 class OffRolloutCarry(NamedTuple):
@@ -147,11 +148,6 @@ class OffPolicyRunner:
         if al.get("share_param", False):
             raise NotImplementedError("off-policy share_param is not ported yet "
                                       "(ROADMAP.md, Queue A: what the off-policy path left)")
-        if args["env"] in HOST_ENVS:
-            raise NotImplementedError(
-                f"host env {args['env']!r}: the port has no host-env runner path yet "
-                "(ROADMAP.md, tooling)")
-
         env = make_env(args["env"], env_args, self.device)
         self.env = env
         self.vec = VecEnv(env, self.n_rollout_threads)
@@ -170,7 +166,6 @@ class OffPolicyRunner:
         cfg = {**al, **md, "use_proper_time_limits": self.use_proper_time_limits,
                "use_valuenorm": tr.get("use_valuenorm", False),
                "_fp_agents": self.n_agents if self.fp else 1}
-        # MultiDiscrete spaces raise here, naming their roadmap item
         self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
                                                  self.device)
                        for i in range(self.n_agents)]
@@ -179,10 +174,13 @@ class OffPolicyRunner:
         self.critic = CRITIC_REGISTRY[self.algo](self.share_obs_dim, self.act_spaces, cfg,
                                                  self.device)
         # HASAC's target entropy per agent: −dim of a Box, −0.98·log(1/n) of
-        # a Discrete space (off_policy.py:175-187)
-        self.target_entropy = [-float(actor.act_dim) if actor.kind == "Box"
-                               else -0.98 * math.log(1.0 / actor.action_space.n)
-                               for actor in self.actors]
+        # a Discrete space, Σᵢ −0.98·log(1/nᵢ) of a MultiDiscrete one
+        # (off_policy.py:175-187)
+        self.target_entropy = [
+            -float(actor.act_dim) if actor.kind == "Box"
+            else sum(-0.98 * math.log(1.0 / int(n)) for n in (
+                (actor.action_space.n,) if actor.kind == "Discrete" else actor.action_space.nvec))
+            for actor in self.actors]
         self.generator = torch.Generator(device=self.device)
         self.host_generator = torch.Generator()
         self.noise = noise if noise is not None else GeneratorNoise(

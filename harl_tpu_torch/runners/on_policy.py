@@ -21,8 +21,10 @@ resume from ``model_dir``. ``evaluate`` and ``render`` run the deterministic
 policy on fresh envs.
 
 Ported paths: EP and FP centralized states, MLP or GRU networks (chunked
-or naive recurrent updates), Box and Discrete actions with availability
-masks, ``share_param`` (one network and optimizer for every agent), linear
+or naive recurrent updates), vector or (H, W, C) pixel observations (the
+actors on ``CNNBase``; the critic's state stays a vector), Box, Discrete
+(with availability masks) and MultiDiscrete actions (``(…, k)`` integer
+rows, one Gumbel draw a sub-head), ``share_param`` (one network and optimizer for every agent), linear
 lr decay, pure-tensor envs. Under FP the critic runs per (env, agent) row,
 the rewards, masks and returns are per agent (T, B, N, 1), and the
 advantages are normalised once across agents. Host envs and meshes are on
@@ -41,7 +43,9 @@ may pass its own noise source instead. Its draws, in order:
   init_state   the env reset, then (from the generator itself) the actors'
                and the critic's initial weights;
   rollout step per agent, ``action_noise`` (Box) or ``gumbel_noise``
-               (Discrete) of its head's shape, then the env step's reset draws;
+               (Discrete) of its head's shape, or (MultiDiscrete)
+               ``gumbel_noise`` once per sub-head in sub-head order, each of
+               that sub-head's shape; then the env step's reset draws;
   update       the agent permutation (random order with N > 1, not MAPPO
                with ``share_param``); with several minibatches, each agent's
                per-epoch shuffles in update order (MAPPO with ``share_param``:
@@ -87,7 +91,7 @@ PER_AGENT_KEYS = ("actions", "logp", "actor_rnn")
 
 class RolloutCarry(NamedTuple):
     env_state: Any
-    obs: torch.Tensor           # (B, N, max_obs_dim)
+    obs: torch.Tensor           # (B, N, max_obs_dim), or pixels (B, N, H, W, C)
     share_obs: torch.Tensor     # EP (B, ds); FP (B, N, ds)
     masks: torch.Tensor         # (B, N, 1)
     active_masks: torch.Tensor  # (B, N, 1)
@@ -106,8 +110,14 @@ class TrainState:
 
 
 def _space_n(space) -> int:
-    """Width of an agent's slice of the padded action / availability rows."""
-    return space.n if spaces.space_kind(space) == "Discrete" else space.shape[0]
+    """Width of an agent's slice of the padded availability rows
+    (on_policy.py:1129-1135): n, Σ nvec, or a Box's dim."""
+    kind = spaces.space_kind(space)
+    if kind == "Discrete":
+        return space.n
+    if kind == "MultiDiscrete":
+        return int(sum(space.nvec))
+    return space.shape[0]
 
 
 class OnPolicyRunner:
@@ -156,7 +166,10 @@ class OnPolicyRunner:
         self.vec = VecEnv(env, self.n_rollout_threads)
         self.n_agents = env.n_agents
         self.act_spaces = env.action_space
+        # (H, W, C) observations go whole to a CNN torso (on_policy.py:142)
+        self.image_obs = len(env.observation_space[0].shape) == 3
         self.obs_dims = [sp.shape[0] for sp in env.observation_space]
+        self.obs_shapes = [tuple(sp.shape) for sp in env.observation_space]
         self.share_obs_dim = env.share_observation_space[0].shape[0]
         self.state_type = getattr(env, "state_type", env_args.get("state_type", "EP"))
         if self.fp and getattr(env, "fp_state_dim", None) is None:
@@ -180,6 +193,13 @@ class OnPolicyRunner:
     def _sidx(self, i: int) -> int:
         """Agent i's entry of ``TrainState.actors``."""
         return 0 if self.share_param else i
+
+    def _obs_i(self, obs: torch.Tensor, i: int) -> torch.Tensor:
+        """Agent i's obs from (…, N, ·): a vector sliced back from the padded
+        width, or a whole (H, W, C) image (on_policy.py:211-216)."""
+        if self.image_obs:
+            return obs[..., i, :, :, :]
+        return obs[..., i, : self.obs_dims[i]]
 
     # ------------------------------------------------------------------ init
     def _model_kwargs(self) -> dict:
@@ -214,7 +234,7 @@ class OnPolicyRunner:
         actors = []
         for i in range(1 if self.share_param else self.n_agents):
             policy = StochasticPolicy(
-                self.obs_dims[i], self.act_spaces[i], gain=md.get("gain", 0.01),
+                self.obs_shapes[i] if self.image_obs else self.obs_dims[i], self.act_spaces[i], gain=md.get("gain", 0.01),
                 std_x_coef=md.get("std_x_coef", 1.0), **self._model_kwargs())
             actors.append(AgentTrainState(policy, self._optimizer(policy, md["lr"],
                                                                   self.actor_updates)))
@@ -245,7 +265,7 @@ class OnPolicyRunner:
         acts, logps, new_rnn = [], [], []
         for i, actor in enumerate(self.actors):
             space = self.act_spaces[i]
-            obs_i = carry.obs[:, i, : self.obs_dims[i]]
+            obs_i = self._obs_i(carry.obs, i)
             avail_i = None if carry.avail is None else carry.avail[:, i, : _space_n(space)]
             net = actors[self._sidx(i)].net
             if self.use_rnn:
@@ -253,7 +273,10 @@ class OnPolicyRunner:
                 new_rnn.append(h)
             else:
                 head, _ = net(obs_i)
-            if spaces.space_kind(space) == "Discrete":
+            kind = spaces.space_kind(space)
+            if kind == "MultiDiscrete":
+                noise = [self.noise.gumbel_noise(h.shape) for h in head]
+            elif kind == "Discrete":
                 noise = self.noise.gumbel_noise(head[0].shape)
             else:
                 noise = self.noise.action_noise(head[0].shape)
@@ -397,7 +420,7 @@ class OnPolicyRunner:
             advantages = normalize_advantages_masked(advantages, data["active_masks"])
         avail = data.get("avail")
         batches = [
-            ActorBatch(obs=data["obs"][:, :, i, : self.obs_dims[i]],
+            ActorBatch(obs=self._obs_i(data["obs"], i),
                        actions=data["actions"][i], logp=data["logp"][i],
                        active_masks=data["active_masks"][:, :, i],
                        rnn_states=data["actor_rnn"][i] if self.use_rnn else None,
@@ -509,7 +532,7 @@ class OnPolicyRunner:
         acts, new_rnn = [], []
         for i, actor in enumerate(self.actors):
             net = state.actors[self._sidx(i)].net
-            obs_i = obs[:, i, : self.obs_dims[i]]
+            obs_i = self._obs_i(obs, i)
             avail_i = None if avail is None else avail[:, i, : _space_n(self.act_spaces[i])]
             if rnn is not None:
                 head, h = net(obs_i, rnn[i], masks[:, None])

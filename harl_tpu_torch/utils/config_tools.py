@@ -26,8 +26,9 @@ def get_defaults_yaml_args(algo: str, env: str) -> Tuple[Dict, Dict]:
             raise NotImplementedError(
                 f"{path.name}: the port ships the YAMLs of all ten algorithms (happo, "
                 "hatrpo, haa2c, mappo, hasac, haddpg, hatd3, had3qn, maddpg, matd3) and of "
-                "mamujoco_jax, pettingzoo_mpe, smaclite, smac and smacv2 (with the 15 SMACv2 "
-                "map configs) so far (ROADMAP.md, Queue A: the remaining pure-JAX envs)"
+                "every pure-tensor env: mamujoco_jax, pettingzoo_mpe, smaclite, smac and "
+                "smacv2 (with the 15 SMACv2 map configs), dexhands_jax, football_jax and "
+                "lag_jax; the host envs' are not (ROADMAP.md, tooling)"
             )
     with open(algo_path) as f:
         algo_args = yaml.safe_load(f)

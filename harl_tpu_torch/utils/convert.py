@@ -6,8 +6,11 @@ imports JAX. A flax ``Dense.kernel`` is (in, out) and a torch
 ``Linear.weight`` (out, in), so kernels are transposed; LayerNorm
 ``scale``/``bias`` map to ``weight``/``bias``. The GRU's fused weights
 (``rnn/wi{i}``, ``wh{i}``, ``bi{i}``, ``bh{i}``) keep the flax layout and copy
-as they are, its output LayerNorm is ``rnn/norm``. Covers ``StochasticPolicy``
-(MLP, optional GRU, Box or Discrete head) and ``VNet`` (MLP, optional GRU),
+as they are, its output LayerNorm is ``rnn/norm``. A ``CNNBase`` torso's
+``conv`` kernel is HWIO in flax and OIHW in torch; its Dense rows follow
+the (H, W, C) flatten order in both. Covers ``StochasticPolicy`` (MLP or
+CNN, optional GRU, Box, Discrete or MultiDiscrete ``head{i}`` heads) and
+``VNet`` (MLP or CNN, optional GRU),
 the off-policy networks on ``PlainMLP`` (``fc{i}`` → ``fc.{i}``):
 ``SquashedGaussianPolicy``, ``DeterministicPolicy`` and ``ContinuousQNet``,
 the last also as a tuple of twin nets, and HAD3QN's ``DuelingQNet`` (alone,
@@ -36,7 +39,11 @@ def _layer_norm(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _mlp_base(p: Mapping) -> Dict[str, torch.Tensor]:
+    """``MLPBase`` or, with a ``conv``, ``CNNBase``."""
     out: Dict[str, torch.Tensor] = {}
+    if "conv" in p:
+        out["base.conv.weight"] = _t(np.transpose(np.asarray(p["conv"]["kernel"]), (3, 2, 0, 1)))
+        out["base.conv.bias"] = _t(p["conv"]["bias"])
     if "feature_norm" in p:
         out.update(_layer_norm("base.feature_norm", p["feature_norm"]))
     i = 0
@@ -58,13 +65,16 @@ def _params(tree: Mapping) -> Mapping:
 
 
 def policy_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``StochasticPolicy`` parameters: MLP, optional GRU, Box or Discrete
-    head; also ``StochasticMlpPolicy``'s (MLP, Discrete head)."""
+    """``StochasticPolicy`` parameters: MLP or CNN, optional GRU, Box,
+    Discrete or MultiDiscrete heads; also ``StochasticMlpPolicy``'s (MLP,
+    Discrete or MultiDiscrete heads)."""
     p = _params(flax_params)
     out = _mlp_base(p["base"])
     if "rnn" in p:
         out.update(_gru(p["rnn"]))
-    out.update(_dense("act.head", p["act"]["head"]))
+    for name in p["act"]:
+        if name.startswith("head"):
+            out.update(_dense(f"act.{name}", p["act"][name]))
     if "log_std" in p["act"]:
         out["act.log_std"] = _t(p["act"]["log_std"])
     return out

@@ -339,3 +339,66 @@ def test_hands_and_humanoid_steps_on_the_card_match_the_cpu(device, env_name, en
         states = [c.state, type(c.state)(*(x.to(device) for x in c.state))]
     if lift or env_args.get("hands_episode_length"):
         assert ends >= X // 2
+
+
+# the ninth slice's envs: soccer (simple, pixels, 10 vs 11), air combat,
+# and the swimmer, Reacher, coupled cheetahs and the many-agent ant
+SLICE9_CASES = [("football_jax", {"env_name": "academy_3_vs_1_with_keeper", "episode_limit": 6}),
+                ("football_jax", {"env_name": "academy_pass_and_shoot_with_keeper",
+                                  "representation": "pixels", "episode_limit": 6}),
+                ("football_jax", {"env_name": "academy_single_goal_versus_lazy",
+                                  "episode_limit": 6}),
+                ("lag_jax", {"scenario": "2v2", "episode_limit": 6}),
+                ("mamujoco_jax", {"scenario": "manyagent_swimmer", "agent_conf": "10x2",
+                                  "episode_limit": 6}),
+                ("mamujoco_jax", {"scenario": "Reacher-v2", "episode_limit": 6}),
+                ("mamujoco_jax", {"scenario": "coupled_half_cheetah", "episode_limit": 6}),
+                ("mamujoco_jax", {"scenario": "manyagent_ant", "agent_conf": "2x3",
+                                  "episode_limit": 6})]
+
+
+@pytest.mark.parametrize("env_name,env_args", SLICE9_CASES,
+                         ids=[a.get("env_name", a.get("scenario")) + ("-px" if "representation" in a
+                                                                     else "")
+                              for _, a in SLICE9_CASES])
+def test_slice9_steps_on_the_card_match_the_cpu(device, env_name, env_args):
+    """8 auto-reset steps of 32 envs with the same actions and reset draws on
+    both devices, each step taken on both from the CPU's state (as the
+    dexhands cases): float states and observations at rtol 1e-4, atol 2e-4;
+    owners, carriers, checkpoints, alive flags, dones, truncations and
+    ``won`` equal; every env truncated at the 6-step limit."""
+    from harl_tpu_torch.envs import core, make_env
+    from harl_tpu_torch.utils import spaces
+
+    envs = [make_env(env_name, env_args, device=d) for d in ("cpu", device)]
+    g, X = torch.Generator().manual_seed(4), 32
+    states = [e.reset(d)[0] for e, d in zip(envs, _same_draws(envs[0].reset_noise_spec, X, g,
+                                                              envs))]
+    sp = envs[0].action_space[0]
+    kind = spaces.space_kind(sp)
+    ends = 0
+    for _ in range(8):
+        if kind == "Box":
+            a = torch.rand((X, envs[0].n_agents, sp.dim), generator=g) * 2.0 - 1.0
+        else:
+            ns = (sp.n,) if kind == "Discrete" else sp.nvec
+            a = torch.stack([torch.randint(0, n, (X, envs[0].n_agents), generator=g)
+                             for n in ns], dim=-1)
+        trs = [core.auto_reset_step(e, s, a.to(e.device), d) for e, s, d in
+               zip(envs, states, _same_draws(envs[0].reset_noise_spec, X, g, envs))]
+        c, gpu = trs
+        for k, v in gpu.state._asdict().items():
+            if v.dtype.is_floating_point:
+                torch.testing.assert_close(v.cpu(), getattr(c.state, k), rtol=1e-4, atol=2e-4)
+            else:
+                assert torch.equal(v.cpu(), getattr(c.state, k)), k
+        for k in ("obs", "share_obs", "rewards"):
+            torch.testing.assert_close(getattr(gpu.final, k).cpu(), getattr(c.final, k),
+                                       rtol=1e-4, atol=2e-4)
+        for k in ("dones", "bad_transition"):
+            assert torch.equal(getattr(gpu.final, k).cpu(), getattr(c.final, k)), k
+        for k, v in (c.final.metrics or {}).items():
+            assert torch.equal(gpu.final.metrics[k].cpu(), v), k
+        ends += int(c.final.dones.all(dim=1).sum())
+        states = [c.state, type(c.state)(*(x.to(device) for x in c.state))]
+    assert ends >= X

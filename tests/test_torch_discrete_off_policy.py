@@ -232,8 +232,9 @@ def test_discrete_hasac_actor_matches_jax():
         ta.deterministic_actions(tst.net, obs, avail).numpy(),
         np.asarray(ja.get_actions(params, jsp.obs[0], key, jsp.available_actions[0],
                                   stochastic=False)))
-    with pytest.raises(NotImplementedError, match="MultiDiscrete heads"):
-        tactors.HASACActor(9, type("MultiDiscrete", (), {"nvec": (2, 3)})(), cfg)
+    # MultiDiscrete, refused before, builds (tests/test_torch_multidiscrete_cnn.py)
+    md = tactors.HASACActor(9, spaces.MultiDiscrete((2, 3)), cfg)
+    assert (md.kind, md.act_dim) == ("MultiDiscrete", 2)
 
 
 # ---------------------------------------------------------- runner updates

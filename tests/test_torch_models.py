@@ -158,8 +158,9 @@ def test_unported_heads_raise():
     class MultiDiscrete:   # several categoricals, as the JAX package's space
         nvec = (3, 4)
 
-    with pytest.raises(NotImplementedError, match="MultiDiscrete"):
-        StochasticPolicy(OBS_DIM, MultiDiscrete(), HIDDEN, device="cpu")
+    # MultiDiscrete heads, refused before, build (tests/test_torch_multidiscrete_cnn.py)
+    head = StochasticPolicy(OBS_DIM, MultiDiscrete(), HIDDEN, device="cpu").act
+    assert [getattr(head, f"head{i}").out_features for i in range(2)] == [3, 4]
     with pytest.raises(NotImplementedError):
         StochasticPolicy(OBS_DIM, spaces.Discrete(5), HIDDEN, device="cpu",
                          initialization_method="xavier_uniform_", use_recurrent_policy=True)

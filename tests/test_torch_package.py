@@ -71,6 +71,38 @@ def test_off_policy_modules_import_without_jax():
         assert f"harl_tpu_torch.{name}" in names, names
 
 
+SLICE9 = ("envs.football_jax.soccer", "envs.lag_jax.aircombat", "envs.mamujoco_jax.swimmer",
+          "envs.mamujoco_jax.reacher", "envs.mamujoco_jax.coupled",
+          "envs.mamujoco_jax.manyagent_ant", "models.cnn")
+
+
+def test_slice9_modules_import_without_jax():
+    """The envs, heads and torso of the ninth slice import with JAX and
+    harl_tpu made unimportable."""
+    names = _import_walk()
+    for name in SLICE9 + ("models.act", "utils.spaces", "algos.off_policy_actors"):
+        assert f"harl_tpu_torch.{name}" in names, names
+
+
+@pytest.mark.parametrize("env,env_args", [
+    ("football_jax", {}), ("lag_jax", {}),
+    ("mamujoco_jax", {"scenario": "manyagent_swimmer"}),
+    ("mamujoco_jax", {"scenario": "Reacher-v2"}),
+    ("mamujoco_jax", {"scenario": "coupled_half_cheetah"}),
+    ("mamujoco_jax", {"scenario": "manyagent_ant"})])
+def test_slice9_entry_points_default_to_cuda(env, env_args):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from harl_tpu_torch.envs import make_env
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_env(env, env_args)
+    algo_args, defaults = get_defaults_yaml_args("happo", env)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnPolicyRunner({"algo": "happo", "env": env}, algo_args, {**defaults, **env_args})
+    assert make_env(env, env_args, device="cpu").n_agents >= 1
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -225,9 +257,10 @@ def test_off_policy_unported_options_raise():
     # the planar env has no FP state
     with pytest.raises(NotImplementedError, match="FP.*ROADMAP"):
         OffPolicyRunner(hasac, algo_args, dict(env_args, state_type="FP"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MultiDiscrete heads"):
-        HASACActor(4, type("MultiDiscrete", (), {"nvec": (2, 3)})(), algo_args["model"] | {
-            "lr": 1e-3, "polyak": 0.005})
+    # MultiDiscrete HASAC, refused before, builds (its parity:
+    # tests/test_torch_runner_soccer_aircombat.py)
+    assert HASACActor(4, type("MultiDiscrete", (), {"nvec": (2, 3)})(), algo_args["model"] | {
+        "lr": 1e-3, "polyak": 0.005}).act_dim == 2
     # HAD3QN and discrete HASAC, refused before, run: on MPE, and discrete
     # HASAC on SMACLite's EP state
     for algo, env, env_args_d in (("had3qn", "pettingzoo_mpe",

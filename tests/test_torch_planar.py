@@ -133,14 +133,22 @@ def test_gauss_solve_matches_linalg():
 
 
 def test_unported_envs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("football_jax", {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("mamujoco_jax", {"scenario": "manyagent_ant"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("mamujoco_jax", {"scenario": "manyagent_swimmer"}, device="cpu")
-    # ported since: Walker2d and Hopper, the 3D Ant (test_torch_ant.py) and
-    # the Humanoid (test_torch_humanoid.py), with their JAX defaults
+    # the host envs stay unported, naming the tooling item; an unknown planar
+    # scenario raises ValueError, as the JAX package's make_planar does
+    for name in ("football", "lag", "mamujoco", "gym"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, tooling"):
+            make_env(name, {}, device="cpu")
+    with pytest.raises(ValueError, match="Unknown env"):
+        make_env("starcraft", {}, device="cpu")
+    with pytest.raises(ValueError, match="no planar spec"):
+        make_env("mamujoco_jax", {"scenario": "Cheetah3D-v2"}, device="cpu")
+    # ported since: football_jax, manyagent_ant and manyagent_swimmer (their
+    # own test files), Walker2d and Hopper, the 3D Ant (test_torch_ant.py)
+    # and the Humanoid (test_torch_humanoid.py), with their JAX defaults
+    assert make_env("football_jax", {}, device="cpu").n_agents == 3
+    assert make_env("mamujoco_jax", {"scenario": "manyagent_ant"}, device="cpu").n_agents == 2
+    assert make_env("mamujoco_jax", {"scenario": "manyagent_swimmer"},
+                    device="cpu").n_agents == 4
     assert make_env("mamujoco_jax", {"scenario": "Humanoid-v2"}, device="cpu").n_agents == 17
     assert make_env("mamujoco_jax", {"scenario": "Walker2d-v2"}, device="cpu").n_agents == 2
     assert make_env("mamujoco_jax", {"scenario": "Hopper-v2"}, device="cpu").n_agents == 3

@@ -148,6 +148,50 @@ def env_reset_noise(env, reset_keys):
     raise ValueError(f"no replay of the reset draws {spec}")
 
 
+def soccer_reset_noise(reset_keys, n_agents, n_defenders):
+    """The academy soccer reset's three normal draws (soccer.py:145-153):
+    the attackers' x, their y and the outfield defenders' x."""
+    def one(k):
+        k1, k2, k3 = jax.random.split(k, 3)
+        return (jax.random.normal(k1, (n_agents,)), jax.random.normal(k2, (n_agents,)),
+                jax.random.normal(k3, (n_defenders - 1,)))
+
+    return tuple(np.asarray(x) for x in jax.vmap(one)(reset_keys))
+
+
+def aircombat_reset_noise(reset_keys, n_allies, n_enemies):
+    """The air-combat reset's three normal draws (aircombat.py:122-131):
+    the allies' x, the enemies' x and every aircraft's altitude."""
+    def one(k):
+        ka, ke, kv = jax.random.split(k, 3)
+        return (jax.random.normal(ka, (n_allies,)), jax.random.normal(ke, (n_enemies,)),
+                jax.random.normal(kv, (n_allies + n_enemies,)))
+
+    return tuple(np.asarray(x) for x in jax.vmap(one)(reset_keys))
+
+
+def swimmer_reset_noise(reset_keys, n_links):
+    """The swimmer reset's two uniform draws (swimmer.py:145-151): the link
+    angles' and the velocities'."""
+    def one(k):
+        k1, k2 = jax.random.split(k)
+        return jax.random.uniform(k1, (n_links,)), jax.random.uniform(k2, (n_links + 2,))
+
+    return tuple(np.asarray(x) for x in jax.vmap(one)(reset_keys))
+
+
+def multi_gumbel_split(key, shapes):
+    """The Gumbels of an on-policy MultiDiscrete sample (act.py:86-96): the
+    agent's key split once per sub-head, one draw each."""
+    return [gumbel_noise(k, sh) for k, sh in zip(jax.random.split(key, len(shapes)), shapes)]
+
+
+def multi_gumbel_fold_in(key, shapes):
+    """The Gumbels of HASAC's MultiDiscrete sample (off_policy_actors.py:
+    156-180): sub-head j draws from ``fold_in(key, j)``."""
+    return [gumbel_noise(jax.random.fold_in(key, j), sh) for j, sh in enumerate(shapes)]
+
+
 def gumbel_noise(key, shape):
     """The standard Gumbel draw of ``jax.random.categorical(key, logits)``
     with logits of ``shape`` (argmax(gumbel + logits), jax 0.9)."""
