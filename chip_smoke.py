@@ -5,9 +5,10 @@
 
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
-run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, then
-the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler session
-leaves the process slower, so every timed run comes before the first one.
+run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
+session leaves the process slower, so every timed run comes before the
+first one.
 
 1. require CUDA and print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA sources (``harl_tpu_torch/csrc/*.cu``) with ``nvcc``,
@@ -128,7 +129,35 @@ leaves the process slower, so every timed run comes before the first one.
    iterations, a MultiDiscrete HASAC block on air combat, and resets and
    steps of the swimmer, Reacher, coupled_half_cheetah and the manyagent ant
    on the card against the CPU (actions, masks, bad masks and flags equal);
-   after every timed run, (e) the device ops of one env step of each new env.
+   after every timed run, (e) the device ops of one env step of each new env;
+19. data parallelism (``harl_tpu_torch/parallel``): the one-rank runs
+   without a mesh of HalfCheetah HAPPO (4096 envs x 32, 2 iterations),
+   SMACLite 5m_vs_6m FP GRU HAPPO (256 x 70, 1 iteration) and HASAC at the
+   bench's widths (after the warmup and a collect: a train block, a
+   collect, a train block), saving the state before each step; (a) the
+   HalfCheetah run through ``run(mesh=…)`` over a world-1 NCCL group,
+   bitwise equal to the run without a mesh; (b) two ranks spawned on the
+   one card (gloo over CUDA tensors) on each workload, every step resumed
+   from the one-rank run's state before it: the replicas bitwise equal
+   after every step; on-policy, every iteration's first-step gradients of
+   every optimizer (summed over the ranks) equal (rtol 1e-5, atol 1e-6)
+   to the one-rank update of the very rows the ranks collected, and the
+   parameters and moments within rtol 1e-5, atol 1e-5 of it (Adam carries
+   the sums' rounding by lr/eps), both against the one-rank run's own
+   rollout reported (at twice the width the planar physics rounds apart);
+   HASAC's train blocks' first-step gradients and first critic losses
+   equal to the one-rank run's, its parameters reported, its gathered
+   collect bitwise equal to each rank's share replayed without a process
+   group and, reported, apart from the one-rank run's wider collect by
+   the width's rounding; GAE once an iteration on each rank and held against
+   its plain version on that rank's columns (T=32, b=2048; T=70, b=640);
+   (c) the CLI with ``--platform cpu --n_devices 2`` on a tiny MPE HAPPO
+   run, and the tuned HalfCheetah-2x3 MAPPO (share_param) with
+   ``--n_devices 1``; (d) small AdamW and ``xavier_normal_`` HAPPO
+   iterations, ValueNorm's ``per_element_update`` and an off-policy
+   ``share_param`` HATD3 block on the card against the CPU; (e)
+   env-steps/s of (a), (b) and the one-rank runs, and the all-reduces and
+   their milliseconds (CUDA events) a step.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1217,14 +1246,16 @@ def drive_cli_paths(card: str, log_dir: str, shrink: dict = None) -> dict:
     return by_path
 
 
-def make_family_runner(algo: str, env: str, device, noise, **algo_updates):
-    """A small on-policy runner: 3m FP GRU or HalfCheetah 2x3."""
+def make_family_runner(algo: str, env: str, device, noise, model: dict = None,
+                       **algo_updates):
+    """A small on-policy runner: 3m FP GRU or HalfCheetah 2x3; ``model``
+    updates the model section."""
     from harl_tpu_torch.runners.on_policy import OnPolicyRunner
     from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
 
     algo_args, env_args = get_defaults_yaml_args(algo, env)
     algo_args["train"].update(n_rollout_threads=8, episode_length=10, num_env_steps=10 ** 9)
-    algo_args["model"].update(hidden_sizes=[16, 16])
+    algo_args["model"].update(hidden_sizes=[16, 16], **(model or {}))
     algo_args["algo"].update(**algo_updates)
     if env == "smaclite":
         algo_args["model"].update(use_recurrent_policy=True, data_chunk_length=5)
@@ -1236,7 +1267,7 @@ def make_family_runner(algo: str, env: str, device, noise, **algo_updates):
 
 
 def check_family_against_cpu(label: str, algo: str, env: str, devices=("cpu", "cuda"),
-                             **algo_updates) -> None:
+                             model: dict = None, **algo_updates) -> None:
     """Phase 14: one small iteration on the card and on the CPU from the
     same parameters and noise; HATRPO's accepted fractions are printed for
     both devices."""
@@ -1245,7 +1276,7 @@ def check_family_against_cpu(label: str, algo: str, env: str, devices=("cpu", "c
     runs = []
     for dev in devices:
         noise = GeneratorNoise(torch.Generator().manual_seed(6), dev)
-        runner = make_family_runner(algo, env, dev, noise, **algo_updates)
+        runner = make_family_runner(algo, env, dev, noise, model, **algo_updates)
         state = runner.init_state(0)
         if runs:   # the card's runner starts from the CPU runner's parameters
             cpu_state = runs[0][0]
@@ -1999,6 +2030,580 @@ def check_slice9_against_cpu(devices=("cpu", "cuda")) -> None:
                                    "episode_limit": 3}, 5)):
         check_env_against_cpu(label, "mamujoco_jax", args, steps, devices, n_envs=8)
 
+# ------------------------------------------ data parallelism (phase 19)
+# the order of float sums: a rank sums its rows, the all-reduce adds the
+# ranks' sums
+DP_RTOL, DP_ATOL = 1e-5, 1e-6
+# on-policy parameters and Adam moments after an iteration, against the
+# one-rank update of the ranks' own rows: Adam (eps 1e-5) carries the sums'
+# rounding into a parameter by up to lr/eps times a gradient's difference a
+# step (8.3e-7 read for HalfCheetah, 2.0e-6 for SMACLite on the H100),
+# while one Adam step moves it by up to lr (5e-4)
+DP_PARAM_ATOL = 1e-5
+DP_WORKLOADS = ("halfcheetah", "smaclite_fp", "hasac")
+# each workload's steps, every one from the one-rank run's state before it:
+# iterations; HASAC's two blocks after its warmup and a first collect, cut
+# into a train block, a collect and a train block
+DP_STEPS = {"halfcheetah": ("iteration",) * 2, "smaclite_fp": ("iteration",),
+            "hasac": ("train", "collect", "train")}
+
+
+def dp_runner(label: str):
+    """Phase 19's workloads at full width on the card: HAPPO HalfCheetah-6x1
+    (4096 envs x 32 steps, [64, 64]); HAPPO SMACLite 5m_vs_6m FP GRU at the
+    bench's widths (256 envs x 70 steps); HASAC HalfCheetah-6x1 at the
+    bench's widths (256 envs, blocks of 50, batch 1000, buffer 200,000)."""
+    if label == "halfcheetah":
+        return make_runner(MAIN["n_envs"], MAIN["episode_length"], MAIN["hidden"], "cuda")
+    if label == "smaclite_fp":
+        return make_smaclite_runner(SMAC["n_envs"], SMAC["episode_length"], SMAC["hidden"],
+                                    "cuda")
+    return make_off_policy_runner("hasac", "cuda")
+
+
+class FirstGrads:
+    """Within a ``with``: each optimizer's gradients when its first step
+    returns (summed over the ranks, and clipped where the optimizer clips),
+    in the order the optimizers first step."""
+
+    def __init__(self):
+        self.grads, self.seen, self.orig = [], set(), {}
+
+    def __enter__(self):
+        from harl_tpu_torch.algos.common import ClippedAdam, MeshAdam
+
+        for cls in (ClippedAdam, MeshAdam):
+            orig = self.orig[cls] = cls.step
+
+            def step(opt, *args, _orig=orig, **kwargs):
+                out = _orig(opt, *args, **kwargs)
+                if id(opt) not in self.seen:
+                    self.seen.add(id(opt))
+                    params = (opt.params if isinstance(opt, ClippedAdam)
+                              else [p for g in opt.param_groups for p in g["params"]])
+                    self.grads.append([p.grad.detach().cpu().clone() for p in params
+                                       if p.grad is not None])
+                return out
+
+            cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.orig.items():
+            cls.step = orig
+
+
+def inserted_rows(spy: Spy) -> list:
+    """The rows of each replay insert a ``Spy`` on ``insert`` saw, on the
+    CPU: per env step, the batch's tensors in ``tensors_of`` order."""
+    from harl_tpu_torch.parallel.mesh import tensors_of
+
+    return [[t.cpu() for t in tensors_of(args[0])] for _, _, args, _ in spy.calls]
+
+
+class UpdateInputs:
+    """Within a ``with``: what each on-policy ``update_phase`` is given as
+    it begins, on the CPU (the rollout's time-major data and the carry's
+    last rows; the train state aside), and the generator's state then."""
+
+    def __enter__(self):
+        from harl_tpu_torch.parallel.mesh import map_tensors
+        from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+        self.calls, orig = [], OnPolicyRunner.update_phase
+        self.orig = orig
+
+        def update_phase(runner, state, *args):
+            self.calls.append(dict(generator=runner.generator.get_state().clone(),
+                                   args=map_tensors(lambda t: t.detach().cpu().clone(), args)))
+            return orig(runner, state, *args)
+
+        OnPolicyRunner.update_phase = update_phase
+        return self
+
+    def __exit__(self, *exc):
+        from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+        OnPolicyRunner.update_phase = self.orig
+
+
+def dp_drive(label: str, mesh, card: str, states: list, floor: dict = None) -> dict:
+    """One workload on this process, on its rank's env columns under
+    ``mesh`` (none: the one-rank run), its ``DP_STEPS``. Every step starts
+    from the one-rank run's state before it, through the checkpoint paths
+    ``states``: the one-rank run saves it there, every rank resumes from
+    it. HASAC's first step follows its warmup and a collect. After each
+    step: the state's replicated tensors (networks, moments, ValueNorm, α;
+    on the CPU), the replicas' mismatch over the ranks, seconds, GAE
+    launches and the milliseconds in collectives; every optimizer's
+    first-step gradients (``FirstGrads``); a train block's first critic
+    loss (this rank's share); a collect's inserted rows (global rows under
+    a mesh); an iteration's update inputs (``UpdateInputs``, this rank's
+    columns). On-policy, then one more rollout on whose GAE inputs (this
+    rank's columns) the kernel is held against its plain version and timed
+    (``gae_in_situ``)."""
+    from harl_tpu_torch.buffers.off_policy import ReplayBuffer
+    from harl_tpu_torch.runners import common
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+
+    runner = dp_runner(label)
+    off = label == "hasac"
+    runner.use_mesh(mesh)
+    mesh = runner.mesh
+    if mesh.grouped:
+        # one untimed all-reduce first: NCCL sets up its communicator there
+        mesh.all_reduce_sum([torch.zeros(1, device="cuda")])
+        mesh.time_collectives = True
+        mesh.collective_ms()
+    state = runner.init_state(0)
+    if off and not mesh.grouped:
+        state = runner.warmup_block(state)
+        state, _ = runner.collect_block(state)
+    torch.cuda.synchronize()
+    zero_launches()
+    steps = []
+    for path, kind in zip(states, DP_STEPS[label]):
+        if mesh.grouped:
+            state = runner.load_checkpoint(state, torch.load(path, map_location=runner.device,
+                                                             weights_only=True))
+        else:
+            torch.save(runner.checkpoint(state), path)
+        calls = mesh.calls
+        first, updates = FirstGrads(), Spy(OffPolicyRunner, "update", sync=False,
+                                           keep=lambda loss: float(loss))
+        inserts, inputs = Spy(ReplayBuffer, "insert", sync=False), UpdateInputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with first, updates, inserts, inputs:
+            step = {"iteration": "train_iteration", "train": "train_block",
+                    "collect": "collect_block"}[kind]
+            state, m = getattr(runner, step)(state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        tensors = common.replica_tensors(state, buffer=False)
+        steps.append(dict(
+            seconds=sec, launches=read_launches(),
+            tensors=[t.detach().cpu().clone() for t in tensors], names=replica_names(state),
+            metrics={k: float(v) for k, v in m.items() if torch.is_tensor(v) and v.dim() == 0},
+            collective_ms=mesh.collective_ms(), collectives=mesh.calls - calls,
+            mismatch=mesh.replica_mismatch(common.replica_tensors(state)),
+            first_grads=first.grads, first_loss=updates.calls[0][3] if updates.calls else None,
+            inserts=inserted_rows(inserts), update_inputs=inputs.calls))
+    out = dict(steps=steps, env_steps=(runner.train_interval if off else runner.episode_length)
+               * runner.n_envs)
+    if not off and floor is not None:
+        T, n = runner.episode_length, runner.n_envs
+        shape = (T, n, runner.n_agents, 1) if runner.fp else (T, n, 1)
+        out["gae"] = gae_in_situ(f"{label} rank {mesh.rank}", runner, state, shape, floor,
+                                 card)
+    return out
+
+
+def dp_rank(mesh, card: str, floor: dict, states: dict) -> dict:
+    """Phase 19 (b) on one spawned rank: every workload in turn, each step
+    from the one-rank run's state before it (``states`` by workload)."""
+    return {label: dp_drive(label, mesh, card, states[label], floor)
+            for label in DP_WORKLOADS}
+
+
+def replayed_collect(rank: int, world: int, path: str) -> list:
+    """Rank ``rank`` of ``world``'s HASAC collect block replayed in this
+    process without a process group, from the checkpoint at ``path``: its
+    env columns, its cut of every global draw, the rows it inserts (its
+    own only: nothing gathers them)."""
+    from harl_tpu_torch.buffers.off_policy import ReplayBuffer
+    from harl_tpu_torch.parallel.mesh import Mesh
+
+    runner = dp_runner("hasac")
+    runner.use_mesh(Mesh(rank, world, "cuda", grouped=False))
+    state = runner.load_checkpoint(runner.init_state(0), torch.load(
+        path, map_location=runner.device, weights_only=True))
+    with Spy(ReplayBuffer, "insert", sync=False) as inserts:
+        runner.collect_block(state)
+    return inserted_rows(inserts)
+
+
+def join_env_axis(parts: list):
+    """The ranks' update inputs (``UpdateInputs`` args, in rank order) as
+    one rank's: the rollout's time-major data joined on axis 1, the carry's
+    rows on axis 0 (env-major, FP critic rows included)."""
+    from harl_tpu_torch.parallel.mesh import map_tensors, tensors_of
+
+    data = [p[0] for p in parts]
+    flat = [tensors_of(d) for d in data]
+    joined = iter([torch.cat(ts, dim=1) for ts in zip(*flat)])
+    rest = [None if p[0] is None else torch.cat(p) for p in zip(*(q[1:] for q in parts))]
+    return (map_tensors(lambda _: next(joined), data[0]), *rest)
+
+
+def replayed_update(label: str, path: str, calls: list) -> dict:
+    """The one-rank run's update of the very rows the ranks collected: from
+    the one-rank state at ``path``, ``update_phase`` on the ranks' inputs
+    (their ``UpdateInputs`` calls, in rank order) joined into the whole
+    batch, with the generator as the ranks had it. Its first-step gradients
+    and replicated tensors, in ``dp_drive``'s step form."""
+    from harl_tpu_torch.parallel.mesh import map_tensors
+    from harl_tpu_torch.runners import common
+
+    runner = dp_runner(label)
+    state = runner.load_checkpoint(runner.init_state(0), torch.load(
+        path, map_location=runner.device, weights_only=True))
+    runner.generator.set_state(calls[0]["generator"])
+    args = map_tensors(lambda t: t.to(runner.device), join_env_axis([c["args"] for c in calls]))
+    with FirstGrads() as first:
+        runner.update_phase(state, *args)
+    tensors = common.replica_tensors(state, buffer=False)
+    return dict(first_grads=first.grads, first_loss=None, names=replica_names(state),
+                tensors=[t.detach().cpu().clone() for t in tensors], metrics={})
+
+
+def replica_names(state) -> list:
+    """The path of each tensor of ``replica_tensors(state, buffer=False)``."""
+    from harl_tpu_torch.utils import checkpoint
+
+    names = []
+
+    def walk(x, path):
+        if isinstance(x, torch.Tensor):
+            names.append(path)
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+
+    for k, v in checkpoint.to_payload(state).items():
+        if k not in ("carry", "buffer"):
+            walk(v, k)
+    return names
+
+
+def dp_compare_first(label: str, got: dict, ref: dict, check: bool = True) -> None:
+    """What the data-parallel arithmetic changes, before Adam amplifies it:
+    at every step (each from the one-rank run's state), every optimizer's
+    first-step gradients (summed over the ranks) against ``ref``'s at
+    DP_RTOL, DP_ATOL; with ``check`` false, only reported."""
+    worst = 0.0
+    for i, (s, r) in enumerate(zip(got["steps"], ref["steps"])):
+        a, b = s["first_grads"], r["first_grads"]
+        if len(a) != len(b) or any(len(x) != len(y) for x, y in zip(a, b)):
+            raise AssertionError(f"{label} step {i + 1}: first-step gradients of another "
+                                 "structure")
+        for xs, ys in zip(a, b):
+            for x, y in zip(xs, ys):
+                if check:
+                    torch.testing.assert_close(
+                        x, y, rtol=DP_RTOL, atol=DP_ATOL,
+                        msg=lambda m: f"{label} step {i + 1}: first-step gradients: {m}")
+                if x.numel():
+                    worst = max(worst, float((x - y).abs().max()))
+    n = max(len(s["first_grads"]) for s in got["steps"])
+    print(f"{label}: every step's first-step gradients of {n} optimizers "
+          + (f"equal (rtol {DP_RTOL}, atol {DP_ATOL}; " if check else "reported (") +
+          f"max |Δ| {worst:.3g})", flush=True)
+
+
+def dp_compare(label: str, got: dict, ref: dict, rtol: float, atol: float,
+               check: bool = True) -> float:
+    """Every step's replicated tensors against the one-rank run's; returns
+    the largest |Δ|. With ``check`` false, only reported."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got["steps"], ref["steps"])):
+        if len(a["tensors"]) != len(b["tensors"]):
+            raise AssertionError(f"{label}: {len(a['tensors'])} tensors against "
+                                 f"{len(b['tensors'])}")
+        kinds = {}
+        for name, x, y in zip(b.get("names") or [""] * len(b["tensors"]), a["tensors"],
+                              b["tensors"]):
+            if not x.numel():
+                continue
+            if not x.dtype.is_floating_point:
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label} step {i + 1}: {name} differs")
+                continue
+            kind = name.rsplit(".", 1)[-1] if "exp_avg" in name else "parameters and rest"
+            d = (x - y).abs()
+            k = kinds.setdefault(kind, [0.0, 0.0, ""])
+            share = float((d / (atol + rtol * y.abs())).max())
+            if check and share > 1:
+                raise AssertionError(f"{label} step {i + 1}: {name} |Δ| {float(d.max()):.3g} "
+                                     f"past rtol {rtol}, atol {atol}")
+            if share > k[1]:
+                k[:] = [max(k[0], float(d.max())), share, name]
+            k[0] = max(k[0], float(d.max()))
+        print(f"{label} step {i + 1}: " + "; ".join(
+            f"{kind} max |Δ| {v[0]:.3g}, worst {v[1]:.3g} of the tolerance ({v[2]})"
+            for kind, v in kinds.items()) + f" (rtol {rtol}, atol {atol})", flush=True)
+        worst = max([worst] + [v[0] for v in kinds.values()])
+        for k in ("episode_count",):
+            if k in b["metrics"] and a["metrics"][k] != b["metrics"][k]:
+                raise AssertionError(f"{label} step {i + 1}: {k} {a['metrics'][k]} against "
+                                     f"{b['metrics'][k]}")
+    return worst
+
+
+def rows_apart(a: list, b: list) -> list:
+    """Per env step, the largest |Δ| between two runs' inserted rows."""
+    return [max((float((x - y).abs().max()) for x, y in zip(xs, ys) if x.numel()),
+                default=0.0) for xs, ys in zip(a, b)]
+
+
+def check_gathered_collect(ranks: list, ref: dict, path: str, card: str) -> None:
+    """HASAC's second collect on the ranks, against (1) each rank's share
+    of it replayed here without a process group (its columns, its cut of
+    the draws, at its width): the gathered rows must be the replays' rows
+    in rank order, bitwise; and (2) the one-rank run's collect from the
+    same state, at twice the width: reported, the width's own rounding."""
+    world = len(ranks)
+    got = ranks[0]["hasac"]["steps"][1]["inserts"]
+    replays = [replayed_collect(r, world, path) for r in range(world)]
+    if len(got) != len(replays[0]):
+        raise AssertionError(f"(b) hasac: {len(got)} inserts against {len(replays[0])}")
+    for t, rows in enumerate(got):
+        want = [torch.cat(parts) for parts in zip(*(rp[t] for rp in replays))]
+        if not all(torch.equal(x, y) for x, y in zip(rows, want)):
+            raise AssertionError(f"(b) hasac: the gathered rows of env step {t + 1} are not "
+                                 "the ranks' replayed rows")
+    apart = rows_apart(got, ref["hasac"]["steps"][1]["inserts"])
+    print(f"(b) hasac: the second collect's {len(got)} gathered inserts equal, bitwise, each "
+          f"rank's {got[0][0].shape[0] // world} columns replayed without a process group; "
+          f"against the one-rank run's {got[0][0].shape[0]}-wide collect from the same state "
+          f"(the width's rounding, not the gather): max |Δ| {apart[0]:.3g} after env step 1, "
+          f"{max(apart[:10]):.3g} by step 10, {max(apart):.3g} by step {len(apart)} on {card}",
+          flush=True)
+
+
+def step_seconds(r: dict) -> float:
+    """Seconds of a workload's timed steps: HASAC's second block (its
+    collect and train steps), else the iterations after the first where
+    there are several (the first may pay warm-up)."""
+    steps = r["steps"][1:] if len(r["steps"]) > 1 else r["steps"]
+    return sum(s["seconds"] for s in steps)
+
+
+def step_env_steps(label: str, r: dict) -> int:
+    """Env-steps of the steps ``step_seconds`` times."""
+    return r["env_steps"] * (1 if label == "hasac" else max(len(r["steps"]) - 1, 1))
+
+
+def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
+    """Phase 19 (a)-(c) and (e). (a) HalfCheetah-6x1 HAPPO at 4096 x 32
+    through ``OnPolicyRunner.run(mesh=…)`` over a world-1 NCCL group, 2
+    iterations, bitwise equal to the same run without a mesh; (b) 2 ranks
+    spawned on the one card (gloo over CUDA tensors): HalfCheetah HAPPO
+    (2048 envs a rank), SMACLite 5m_vs_6m FP GRU HAPPO (128 a rank) and
+    HASAC at the bench's widths, each step from the one-rank run's state:
+    the replicas bitwise equal; on-policy every iteration's first-step
+    gradients and, within DP_PARAM_ATOL, the parameters equal to the
+    one-rank update of the ranks' own rows (``replayed_update``), against
+    the one-rank run reported; HASAC's train blocks' first-step gradients
+    and first critic losses equal to the one-rank run's, its gathered
+    collect equal to the ranks' replayed shares; GAE once an iteration on
+    each rank and held against its plain version on that rank's inputs; (c) the CLI:
+    ``--platform cpu --n_devices 2`` on a tiny MPE HAPPO run, and the tuned
+    HalfCheetah-2x3 MAPPO (share_param) with ``--n_devices 1`` on the card;
+    (e) env-steps/s of (a), (b) and the one-rank runs, and the milliseconds
+    an iteration or block spends in collectives. Returns (launches by path,
+    the GAE kernel's in-situ numbers by rank and workload)."""
+    from harl_tpu_torch import train
+    from harl_tpu_torch.parallel import mesh as dpmesh
+    from harl_tpu_torch.parallel.launch import free_port, spawn_ranks
+    from harl_tpu_torch.runners import common
+
+    by_path, in_situ = {}, {}
+    states = {label: [os.path.join(log_dir, f"{label}_state{i}.pt")
+                      for i in range(len(DP_STEPS[label]))] for label in DP_WORKLOADS}
+    # the one-rank runs, without a mesh, on the card
+    ref = {label: dp_drive(label, None, card, states[label]) for label in DP_WORKLOADS}
+    for label, r in ref.items():
+        expect = 0 if label == "hasac" else 1
+        for i, st in enumerate(r["steps"]):
+            if st["launches"]["gae"] != expect * (i + 1):
+                raise AssertionError(f"one-rank {label}: launches {st['launches']}")
+    # (a) a world-1 NCCL group through run(mesh=…)
+    zero_launches()
+    dpmesh.distributed_init(f"localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        mesh = dpmesh.make_mesh("cuda")
+        mesh.all_reduce_sum([torch.zeros(1, device="cuda")])   # NCCL's set-up, untimed
+        mesh.time_collectives = True
+        runner = dp_runner("halfcheetah")
+        runner.num_env_steps = 2 * runner.episode_length * runner.n_rollout_threads
+        runner.episodes = 2
+        runner.algo_args["eval"]["use_eval"] = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, history = runner.run(seed=0, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll_ms = mesh.collective_ms()
+        calls = mesh.calls
+    finally:
+        dpmesh.shutdown()
+    launches = read_launches()
+    if launches != {"gae": 2, "discounted_returns": 0}:
+        raise AssertionError(f"(a) world-1 NCCL run: launches {launches}")
+    by_path["dp_nccl_world1_halfcheetah"] = launches
+    got = [t.detach().cpu() for t in common.replica_tensors(state, buffer=False)]
+    want = ref["halfcheetah"]["steps"][-1]["tensors"]
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        worst = max(float((a - b).abs().max()) for a, b in zip(got, want) if a.numel())
+        raise AssertionError(f"(a) world-1 NCCL run differs from the run without a mesh "
+                             f"(max |Δ| {worst:.3g})")
+    ref_rate = {label: step_env_steps(label, r) / step_seconds(r)
+                for label, r in ref.items()}
+    print(f"phase 19 (a): HalfCheetah-6x1 HAPPO {MAIN['n_envs']} x {MAIN['episode_length']} "
+          f"through run(mesh=…) over a world-1 NCCL group, 2 iterations in {wall:.3f} s "
+          f"(run's wall, init included); bitwise equal to the run without a mesh; {calls} "
+          f"all-reduces, {coll_ms / 2:.3f} ms a iteration in them; gae launched "
+          f"{launches['gae']} times; one-rank run without a mesh "
+          f"{ref_rate['halfcheetah']:.1f} env-steps/s on {card}", flush=True)
+
+    # (b) two ranks on the one card, gloo over CUDA tensors
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank, 2, (card, floor, states), device="cuda:0", backend="gloo",
+                        timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    for label in DP_WORKLOADS:
+        rates, worst, apart = [], {"held": 0.0, "one-rank": 0.0}, 0.0
+        if label == "hasac":
+            # its train blocks start from the one-rank run's state and buffer
+            held = ref[label]
+        else:
+            # the one-rank update of the very rows the ranks collected: the
+            # one-rank run's own rollout, at twice the width, rounds apart
+            calls = [[res[label]["steps"][i]["update_inputs"][0] for res in ranks]
+                     for i in range(len(states[label]))]
+            held = dict(steps=[replayed_update(label, path, c)
+                               for path, c in zip(states[label], calls)])
+            from harl_tpu_torch.parallel.mesh import tensors_of
+
+            for c, st in zip(calls, ref[label]["steps"]):
+                mine = tensors_of(join_env_axis([x["args"] for x in c]))
+                theirs = tensors_of(st["update_inputs"][0]["args"])
+                apart = max([apart] + [float((x - y).abs().max()) for x, y in zip(mine, theirs)
+                                       if x.numel()])
+        for rank, res in enumerate(ranks):
+            r = res[label]
+            for i, st in enumerate(r["steps"]):
+                if st["mismatch"] != (0, 0.0):
+                    raise AssertionError(f"(b) {label} rank {rank} step {i + 1}: replicas "
+                                         f"differ {st['mismatch']}")
+                expect = 0 if label == "hasac" else i + 1
+                if st["launches"] != {"gae": expect, "discounted_returns": 0}:
+                    raise AssertionError(f"(b) {label} rank {rank}: launches {st['launches']}")
+            name = f"(b) {label} rank {rank}"
+            dp_compare_first(name if label == "hasac" else
+                             f"{name} against the one-rank update of its rows", r, held)
+            if label == "hasac":
+                # Adam with eps 1e-8 moves a parameter by ±lr wherever its
+                # gradient is rounding noise, whichever the sign: reported
+                worst["one-rank"] = max(worst["one-rank"], dp_compare(
+                    name, r, ref[label], DP_RTOL, DP_PARAM_ATOL, check=False))
+            else:
+                worst["held"] = max(worst["held"], dp_compare(
+                    f"{name} against the one-rank update of its rows", r, held, DP_RTOL,
+                    DP_PARAM_ATOL))
+                dp_compare_first(f"{name} against the one-rank run", r, ref[label],
+                                 check=False)
+                worst["one-rank"] = max(worst["one-rank"], dp_compare(
+                    f"{name} against the one-rank run", r, ref[label], DP_RTOL, DP_PARAM_ATOL,
+                    check=False))
+            by_path[f"dp_gloo_rank{rank}_{label}"] = r["steps"][-1]["launches"]
+            if "gae" in r:
+                in_situ[f"{label}_rank{rank}"] = r["gae"]
+            rates.append(step_seconds(r))
+        for i, st in enumerate(ref[label]["steps"]):
+            if st["first_loss"] is not None:
+                # the ranks' shares of a train block's first critic loss
+                loss = sum(res[label]["steps"][i]["first_loss"] for res in ranks)
+                if not math.isclose(loss, st["first_loss"], rel_tol=DP_RTOL):
+                    raise AssertionError(f"(b) {label} step {i + 1}: first critic loss {loss} "
+                                         f"against {st['first_loss']}")
+        if label == "hasac":
+            check_gathered_collect(ranks, ref, states["hasac"][1], card)
+        r0 = ranks[0][label]
+        n_steps = len(r0["steps"])
+        rate = 2 * step_env_steps(label, r0) / max(rates)
+        secs = ", ".join("%.4f s" % st["seconds"] for st in r0["steps"])
+        colls = ", ".join("%d (%.3f ms)" % (st["collectives"], st["collective_ms"])
+                          for st in r0["steps"])
+        held = (f"parameters reported (max |Δ| {worst['one-rank']:.3g})" if label == "hasac"
+                else f"parameters within rtol {DP_RTOL}, atol {DP_PARAM_ATOL} of the one-rank "
+                f"update of the ranks' rows (max |Δ| {worst['held']:.3g}); against the one-rank "
+                f"run, whose rollout at twice the width rounds apart (its update inputs max "
+                f"|Δ| {apart:.3g}), reported (max |Δ| {worst['one-rank']:.3g})")
+        print(f"phase 19 (b) {label}: 2 ranks on one card (gloo), {r0['env_steps']} env-steps "
+              f"a rank a {'block' if label == 'hasac' else 'iteration'}, each of its steps "
+              f"({', '.join(DP_STEPS[label])}) from the "
+              f"one-rank run's state; replicas bitwise equal after each of {n_steps}; {held}; "
+              f"{rate:.1f} env-steps/s over both ranks against {ref_rate[label]:.1f} one-rank; "
+              f"per step {secs}; all-reduces and the time in them per step {colls} on rank 0; "
+              f"not a scaling number: both ranks share the card; {card}", flush=True)
+    log(f"phase 19 (b): {spawn_s:.1f} s with the spawn")
+
+    # (c) the CLI: two gloo ranks on the CPU, and n_devices 1 on the card
+    run = train.main(["--algo", "happo", "--env", "pettingzoo_mpe", "--platform", "cpu",
+                      "--n_devices", "2", "--n_rollout_threads", "4", "--episode_length",
+                      "10", "--hidden_sizes", "[8, 8]", "--num_env_steps", "80",
+                      "--use_eval", "False", "--log_interval", "1", "--eval_interval", "1",
+                      "--log_dir", os.path.join(log_dir, "cli_dp")])
+    recs = read_run(run, 3)
+    if [r["steps"] for r in recs] != [40, 80]:
+        raise AssertionError(f"(c) --n_devices 2 on the CPU: records {recs}")
+    print(f"phase 19 (c): train.main --platform cpu --n_devices 2 (tiny MPE HAPPO): rank 0 "
+          f"logged steps {[r['steps'] for r in recs]}, value_loss "
+          f"{[round(r['value_loss'], 4) for r in recs]}", flush=True)
+    by_path.update(drive_tuned_paths(
+        card, log_dir, [("mappo_share_param_n_devices_1", CLI_MAPPO, 2, 2, False, False)],
+        {"n_devices": 1}))
+    return by_path, in_situ
+
+
+def small_share_param_runner(algo: str, device, noise):
+    """Off-policy ``share_param`` HATD3 on continuous MPE simple_spread: the
+    block sizes of ``small_off_policy_runner``, episodes of 5 steps."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "pettingzoo_mpe")
+    algo_args["train"].update(n_rollout_threads=16, num_env_steps=10 ** 9, warmup_steps=32,
+                              train_interval=4, update_per_train=1)
+    algo_args["algo"].update(batch_size=64, buffer_size=1000, share_param=True)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    return OffPolicyRunner({"algo": algo, "env": "pettingzoo_mpe"}, algo_args,
+                           {"scenario": "simple_spread_v2", "continuous_actions": True,
+                            "max_cycles": 5}, device=device, noise=noise)
+
+
+def check_dp_options_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 19 (d): the options this slice ported, on the card against the
+    CPU: small HAPPO iterations with AdamW (weight decay 1e-4) and with
+    ``xavier_normal_`` networks, ValueNorm's ``per_element_update`` on the
+    SMACLite FP critic's shape, and an off-policy ``share_param`` HATD3
+    block on MPE."""
+    from harl_tpu_torch.ops import value_norm as vn
+
+    check_family_against_cpu("happo adamw halfcheetah 2x3", "happo", "mamujoco_jax", devices,
+                             model={"weight_decay": 1e-4})
+    check_family_against_cpu("happo xavier_normal_ halfcheetah 2x3", "happo", "mamujoco_jax",
+                             devices, model={"initialization_method": "xavier_normal_"})
+    g = torch.Generator().manual_seed(8)
+    xs = [torch.randn((70, 640, 1), generator=g) * 3 + 1 for _ in range(3)]
+    states = []
+    for dev in devices:
+        st = vn.init_value_norm(1, device=dev)
+        for x in xs:
+            st = vn.update_value_norm(st, x.to(dev), per_element_update=True)
+        states.append(st)
+    for name in ("running_mean", "running_mean_sq", "debiasing_term"):
+        torch.testing.assert_close(getattr(states[1], name).cpu(), getattr(states[0], name),
+                                   rtol=1e-6, atol=1e-7)
+    log("per_element_update ValueNorm (3 updates of 70 x 640): card == CPU (rtol 1e-6)")
+    check_off_policy_against_cpu("hatd3", devices, make=small_share_param_runner,
+                                 label="share_param hatd3 mpe simple_spread")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2051,6 +2656,12 @@ def main() -> int:
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     check_slice9_against_cpu()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        dp_paths, dp_gae = drive_dp_paths(card, floor, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check_dp_options_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -2060,7 +2671,7 @@ def main() -> int:
     slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
-               **slice9}
+               **slice9, **dp_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -2072,7 +2683,8 @@ def main() -> int:
             extra = dict(smaclite_in_situ=smac_gae, cli_hatrpo_in_situ=cli_gae,
                          shadowhandover_in_situ=handover_gae,
                          soccer_in_situ=slice9_gae["soccer_happo"],
-                         aircombat_in_situ=slice9_gae["aircombat_happo"])
+                         aircombat_in_situ=slice9_gae["aircombat_happo"],
+                         **{f"dp_{k}_in_situ": v for k, v in dp_gae.items()})
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
             launches=sum(p[name] for p in by_path.values()),

@@ -1,8 +1,8 @@
 """harl_tpu_torch — the PyTorch/CUDA port of harl_tpu.
 
 Mirrors the JAX package's module layout (``utils``, ``ops``, ``models``,
-``algos``, ``buffers``, ``envs``, ``runners``) so each module's counterpart
-is easy to find.
+``algos``, ``buffers``, ``envs``, ``runners``, ``parallel``) so each
+module's counterpart is easy to find.
 It imports ``torch``, numpy and yaml only: nothing of JAX and nothing of
 ``harl_tpu``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; the hand-written kernels live in ``csrc/`` and are built

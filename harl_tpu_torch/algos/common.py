@@ -4,15 +4,21 @@ updates, and how an update cuts its batch into minibatch rows."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
+from harl_tpu_torch.parallel.mesh import LOCAL, Mesh
+
 
 class ClippedAdam:
     """Global-norm gradient clip, then ``torch.optim.Adam(eps=opti_eps)`` —
-    the JAX package's ``optax.chain(clip_by_global_norm, adam)``.
+    the JAX package's ``optax.chain(clip_by_global_norm, adam)`` — or, with
+    ``weight_decay``, ``torch.optim.AdamW``: optax's ``adamw`` decays every
+    parameter by lr·wd·p in the same scheduled step, as AdamW does with its
+    group's lr, so the clip stays before the decay and a linear lr decay
+    scales both.
 
     The clip is written out because ``optax.clip_by_global_norm`` leaves the
     gradients alone below the limit and scales them by ``max/norm`` above
@@ -23,16 +29,24 @@ class ClippedAdam:
     With ``lr_schedule``, each step first sets every param group's ``lr`` to
     ``lr_schedule(count)``, ``count`` the steps taken before this one: optax
     evaluates a schedule on the same count.
+
+    The gradients are summed over the ``mesh``'s ranks (``parallel/mesh.py``;
+    ``LOCAL``, one rank, by default) in one bucketed all-reduce before the
+    norm and the clip: every replica then clips alike and takes the same
+    step.
     """
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float, eps: float = 1e-5,
                  max_grad_norm: Optional[float] = None,
-                 lr_schedule: Optional[Callable[[int], float]] = None):
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 weight_decay: float = 0.0, mesh: Mesh = LOCAL):
         self.params: List[nn.Parameter] = list(params)
         self.max_grad_norm = max_grad_norm
         self.lr_schedule = lr_schedule
+        self.mesh = mesh
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=lr, eps=eps)
+        self.adam = (torch.optim.AdamW(self.params, lr=lr, eps=eps, weight_decay=weight_decay)
+                     if weight_decay else torch.optim.Adam(self.params, lr=lr, eps=eps))
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -41,6 +55,7 @@ class ClippedAdam:
     def step(self) -> torch.Tensor:
         """Clip the gradients in place, step Adam; returns the pre-clip
         global norm (the reported ``grad_norm``)."""
+        self.mesh.all_reduce_grads_(self.params)
         grads = [p.grad for p in self.params if p.grad is not None]
         gnorm = global_grad_norm(grads)
         if self.max_grad_norm is not None:
@@ -102,23 +117,34 @@ def linear_lr_schedule(lr: float, total_updates: int,
 def make_optimizer(params, lr: float, opti_eps: float = 1e-5, weight_decay: float = 0.0,
                    max_grad_norm: Optional[float] = None,
                    use_linear_lr_decay: bool = False, total_updates: int = 1,
-                   updates_per_iteration: int = 1) -> ClippedAdam:
-    """The JAX package's ``make_optimizer``: Adam after the optional clip,
-    with the optional linear lr decay over ``total_updates`` iterations of
-    ``updates_per_iteration`` optimizer steps each."""
-    if weight_decay:
-        raise NotImplementedError(
-            "weight decay (optax.adamw) is not ported yet (ROADMAP.md, options of the "
-            "ported modules)")
+                   updates_per_iteration: int = 1, mesh: Mesh = LOCAL) -> ClippedAdam:
+    """The JAX package's ``make_optimizer``: Adam (AdamW with a weight
+    decay) after the optional clip, with the optional linear lr decay over
+    ``total_updates`` iterations of ``updates_per_iteration`` optimizer
+    steps each."""
     schedule = (linear_lr_schedule(lr, total_updates, updates_per_iteration)
                 if use_linear_lr_decay else None)
-    return ClippedAdam(params, lr, opti_eps, max_grad_norm, schedule)
+    return ClippedAdam(params, lr, opti_eps, max_grad_norm, schedule, weight_decay, mesh)
 
 
-def adam(params, lr: float) -> torch.optim.Adam:
+class MeshAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` that sums the gradients over the ``mesh``'s
+    ranks (one bucketed all-reduce) before its step."""
+
+    def __init__(self, params, lr: float, eps: float, mesh: Mesh = LOCAL):
+        super().__init__(params, lr=lr, eps=eps)
+        self.mesh = mesh
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.mesh.all_reduce_grads_([p for g in self.param_groups for p in g["params"]])
+        return super().step(closure)
+
+
+def adam(params, lr: float, mesh: Mesh = LOCAL) -> MeshAdam:
     """The off-policy networks' ``optax.adam(lr)``: eps 1e-8, no clip
     (off_policy_actors.py:57,122, q_critics.py:88-89)."""
-    return torch.optim.Adam(params, lr=lr, eps=1e-8)
+    return MeshAdam(params, lr, 1e-8, mesh)
 
 
 @torch.no_grad()
@@ -162,6 +188,21 @@ def time_major(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x.transpose(0, 1)
 
 
+class Share(NamedTuple):
+    """A rank's part of an update (``parallel/mesh.py``): the global column
+    of each of its batch's columns (host int64) among ``total`` global
+    ones. Every loss is the rank's sum over a global count."""
+
+    mesh: Mesh
+    cols: torch.Tensor
+    total: int
+
+    @staticmethod
+    def whole(total: int) -> "Share":
+        """All ``total`` columns on one rank (``LOCAL``)."""
+        return Share(LOCAL, torch.arange(total), total)
+
+
 class Chunking:
     """How an update cuts a (T, B, ·) batch into minibatch rows: T·B steps,
     or C = B·T/L chunks of L steps for a recurrent network
@@ -196,13 +237,31 @@ class Chunking:
         r = rnn_states.transpose(0, 1)[:, ::L]
         return r.reshape((-1,) + tuple(rnn_states.shape[2:]))
 
-    def steps(self, epochs: int, num_mini_batch: int, M: int,
-              perms: Optional[torch.Tensor]):
-        """Per-step row indices (None: the whole batch) for ``epochs`` ×
-        ``num_mini_batch`` minibatches from the per-epoch shuffles."""
+    def steps(self, epochs: int, num_mini_batch: int, T: int, share: Share,
+              perms: Optional[torch.Tensor], device):
+        """The ``epochs`` × ``num_mini_batch`` minibatches of the per-epoch
+        shuffles ``perms`` (epochs, global rows) on a rank's share: per step
+        the rank's rows of the global minibatch (local indices in the
+        minibatch's order, maybe none; None: every local row) and the
+        minibatch's global count of time steps. A global row is t·B + b, or
+        b·(T/L) + c for chunks, so a rank owns the rows of its env columns."""
+        M = self.rows(T, share.total)
+        per_row = self.chunk_length(T) if self.use_rnn else 1
         if num_mini_batch == 1:
             # a full-batch gradient does not depend on the order: no gather
-            return [None] * epochs
+            return [(None, M * per_row)] * epochs
         if perms is None or tuple(perms.shape) != (epochs, M):
             raise ValueError(f"need perms of shape {(epochs, M)}")
-        return list(perms.reshape(epochs * num_mini_batch, M // num_mini_batch))
+        cols = share.cols
+        if self.use_rnn:
+            C = T // self.chunk_length(T)
+            gid = (cols[:, None] * C + torch.arange(C)).reshape(-1)
+        else:
+            gid = (torch.arange(T)[:, None] * share.total + cols[None, :]).reshape(-1)
+        inv = torch.full((M,), -1, dtype=torch.long)
+        inv[gid] = torch.arange(gid.numel())
+        out = []
+        for idx in perms.cpu().reshape(epochs * num_mini_batch, M // num_mini_batch):
+            local = inv[idx]
+            out.append((local[local >= 0].to(device), (M // num_mini_batch) * per_row))
+        return out

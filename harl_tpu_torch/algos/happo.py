@@ -14,6 +14,13 @@ Minibatch rows: feed-forward, the T·B steps; recurrent, chunks of
 in sequence mode from the hidden state the rollout stored at its first step.
 The naive-recurrent path is the L = T case (whole env threads).
 
+An update runs on a rank's ``share`` of the env columns (``Share``,
+``parallel/mesh.py``; all of them on one rank by default): the
+advantages' statistics are global, each minibatch is the rank's rows of the
+global minibatch (maybe none), every masked mean is the rank's sum over the
+global denominator, the optimizer sums the gradients over the ranks, and
+the returned stats are global.
+
 HAA2C drops the clip and takes its epochs from ``a2c_epoch`` (haa2c.py:64-82);
 MAPPO is HAPPO's loss, and its runner passes an all-ones factor and skips
 the factor chain (mappo.py:64-80).
@@ -24,7 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from harl_tpu_torch.algos.common import (AgentTrainState, Chunking, aggregate_ratio,
+from harl_tpu_torch.algos.common import (AgentTrainState, Chunking, Share, aggregate_ratio,
                                          flat, time_major)
 from harl_tpu_torch.models.act import act_evaluate
 from harl_tpu_torch.ops.returns import normalize_advantages_masked
@@ -79,34 +86,51 @@ class HAPPOActor:
 
     def update(self, state: AgentTrainState, batch: ActorBatch,
                advantages: torch.Tensor, factor: torch.Tensor,
-               perms: Optional[torch.Tensor] = None, state_type: str = "EP") -> torch.Tensor:
+               perms: Optional[torch.Tensor] = None, state_type: str = "EP",
+               share: Optional[Share] = None) -> torch.Tensor:
         """Train one agent in place. ``advantages`` and ``factor`` are
         (T, B, 1); ``perms`` (ppo_epoch, rows) gives each epoch's shuffle of
-        the minibatch rows (``chunking.rows``) and is needed only with more
-        than one minibatch. Returns the mean over steps of [policy_loss,
-        dist_entropy, grad_norm, ratio]."""
+        the global minibatch rows (``chunking.rows``) and is needed only
+        with more than one minibatch; ``share`` defaults to every column.
+        Returns the mean over steps of [policy_loss, dist_entropy,
+        grad_norm, ratio]."""
         T, B = batch.obs.shape[:2]
         ch = self.chunking
+        share = share or Share.whole(B)
+        mesh = share.mesh
         if state_type == "EP":
-            advantages = normalize_advantages_masked(advantages, batch.active_masks)
+            advantages = normalize_advantages_masked(advantages, batch.active_masks, mesh)
         data = [ch.prep(x, T) for x in (batch.obs, batch.actions, batch.logp,
                                         batch.active_masks, advantages, factor,
                                         batch.masks if ch.use_rnn else None,
                                         batch.available_actions)]
         rnn0 = ch.first_states(batch.rnn_states, T) if ch.use_rnn else None
+        steps = ch.steps(self.ppo_epoch, self.num_mini_batch, T, share, perms,
+                         batch.obs.device)
+        # every step's global active count, in one all-reduce
+        (denoms,) = mesh.all_reduce_sum([torch.stack([
+            (data[3] if idx is None else data[3][idx]).sum() for idx, _ in steps])])
         stats = []
-        for idx in ch.steps(self.ppo_epoch, self.num_mini_batch, ch.rows(T, B), perms):
+        for (idx, count), denom in zip(steps, denoms):
             mb = data if idx is None else [None if x is None else x[idx] for x in data]
             h0 = rnn0 if idx is None or rnn0 is None else rnn0[idx]
-            policy_loss, entropy, ratio = self._loss(state.net, h0, *mb)
+            policy_loss, entropy, ratio = self._loss(state.net, h0, *mb, denom=denom,
+                                                     count=count)
             state.opt.zero_grad()
             (policy_loss - entropy * self.entropy_coef).backward()
             gnorm = state.opt.step()
             stats.append(torch.stack([policy_loss.detach(), entropy.detach(), gnorm,
                                       ratio.detach()]))
-        return torch.stack(stats).mean(dim=0)
+        stats = torch.stack(stats).mean(dim=0)
+        # the ranks' shares of the loss, entropy and ratio add up
+        (summed,) = mesh.all_reduce_sum([stats[[0, 1, 3]]])
+        return torch.stack([summed[0], summed[1], stats[2], summed[2]])
 
-    def _loss(self, policy, rnn0, obs, actions, old_logp, active, adv, fac, masks, avail):
+    def _loss(self, policy, rnn0, obs, actions, old_logp, active, adv, fac, masks, avail,
+              denom, count):
+        """(policy loss, entropy, mean ratio) of a rank's rows of a
+        minibatch: its sums over ``denom`` (the global active count) and
+        ``count`` (the global time steps)."""
         if rnn0 is not None:
             # (mb, L, …) → time-major (L, mb, …) for the GRU's sequence mode
             head, _ = policy(time_major(obs), rnn0, time_major(masks), seq=True)
@@ -115,7 +139,7 @@ class HAPPOActor:
         else:
             head, _ = policy(obs)
         ev = act_evaluate(head, self.action_space, actions, avail, active,
-                          self.std_x_coef, self.std_y_coef)
+                          self.std_x_coef, self.std_y_coef, entropy_denom=denom)
         ratio = aggregate_ratio(ev.log_probs - old_logp, self.action_aggregation)
         surr = ratio * adv
         if self.use_clip:
@@ -123,10 +147,10 @@ class HAPPOActor:
                 surr, torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param) * adv)
         obj = (fac * surr).sum(dim=-1, keepdim=True)
         if self.use_policy_active_masks:
-            policy_loss = -(obj * active).sum() / torch.clamp(active.sum(), min=1e-9)
+            policy_loss = -(obj * active).sum() / torch.clamp(denom, min=1e-9)
         else:
-            policy_loss = -obj.mean()
-        return policy_loss, ev.entropy, ratio.mean()
+            policy_loss = -obj.sum() / count
+        return policy_loss, ev.entropy, ratio.sum() / count
 
 
 class HAA2CActor(HAPPOActor):

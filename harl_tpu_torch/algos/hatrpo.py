@@ -35,6 +35,14 @@ A recurrent policy runs the whole rollout in sequence mode from
 forms: ``kl_approx`` on the raw head logits for Discrete (trpo_util.py:47-52),
 the diagonal-normal KL with ``diag_gaussian_std`` for Box (:55-62).
 MultiDiscrete is unsupported, as in the reference (hatrpo.py:27-29).
+
+An update runs on a rank's ``share`` of the env columns (``Share``,
+``parallel/mesh.py``; all of them on one rank by default): the surrogate
+and the KL are its sums over the global counts,
+and the surrogate's gradient (with the reported stats), every Fisher-vector
+product and each try's surrogate and KL are summed over the ranks in one
+all-reduce each. CG then runs on replicated vectors, and every rank takes
+the same line-search branch.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from typing import List, Optional
 import torch
 from torch.nn.utils import parameters_to_vector
 
-from harl_tpu_torch.algos.common import AgentTrainState, aggregate_ratio, flat
+from harl_tpu_torch.algos.common import AgentTrainState, Share, aggregate_ratio, flat
 from harl_tpu_torch.algos.happo import ActorBatch, HAPPOActor
 from harl_tpu_torch.models.act import act_evaluate
 from harl_tpu_torch.ops import distributions as D
@@ -101,8 +109,9 @@ class HATRPOActor(HAPPOActor):
     def _phase(self, name: str):
         return self.timer.phase(name) if self.timer is not None else contextlib.nullcontext()
 
-    def _kl(self, new_head, old_head) -> torch.Tensor:
-        """Mean over rows of the reference KL forms summed over action dims."""
+    def _kl(self, new_head, old_head, count: int) -> torch.Tensor:
+        """Mean over rows of the reference KL forms summed over action dims:
+        the sum over a rank's rows divided by ``count``, the global rows."""
         if spaces.space_kind(self.action_space) == "Discrete":
             p, q = old_head[0], new_head[0]
             kl = torch.exp(q - p) - 1.0 - q + p
@@ -113,22 +122,29 @@ class HATRPOActor(HAPPOActor):
             var_ratio = (std_p / std_q) ** 2
             t1 = ((mean_p - mean_q) / std_q) ** 2
             kl = 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
-        return kl.sum(dim=-1, keepdim=True).mean()
+        return kl.sum() / count
 
     def update(self, state: AgentTrainState, batch: ActorBatch, advantages: torch.Tensor,
                factor: torch.Tensor, perms: Optional[torch.Tensor] = None,
-               state_type: str = "EP") -> torch.Tensor:
+               state_type: str = "EP", share: Optional[Share] = None) -> torch.Tensor:
         """Train one agent in place; ``perms`` is unused (one full batch).
-        Returns [improvement, entropy, kl, ratio], the first and third 0 when
-        no step was accepted."""
+        ``share`` defaults to every column. Returns [improvement, entropy,
+        kl, ratio], the first and third 0 when no step was accepted."""
         del perms
+        share = share or Share.whole(batch.obs.shape[1])
+        mesh = share.mesh
         if state_type == "EP":
-            advantages = normalize_advantages_masked(advantages, batch.active_masks)
+            advantages = normalize_advantages_masked(advantages, batch.active_masks, mesh)
         net = state.net
         params = list(net.parameters())
         actions, old_logp, active, avail, adv, fac = map(flat, (
             batch.actions, batch.logp, batch.active_masks, batch.available_actions,
             advantages, factor))
+        count = actions.shape[0] // len(share.cols) * share.total
+        (denom,) = mesh.all_reduce_sum([active.sum()])
+
+        def reduce(*xs):
+            return tuple(mesh.all_reduce_sum(xs))
 
         def forward():
             """Full-batch heads, rows flattened to (T·B, ·)."""
@@ -139,30 +155,31 @@ class HATRPOActor(HAPPOActor):
 
         def surrogate(head):
             ev = act_evaluate(head, self.action_space, actions, avail, active,
-                              self.std_x_coef, self.std_y_coef)
+                              self.std_x_coef, self.std_y_coef, entropy_denom=denom)
             ratio = aggregate_ratio(ev.log_probs - old_logp, self.action_aggregation)
             obj = (ratio * fac * adv).sum(dim=-1, keepdim=True)
             if self.use_policy_active_masks:
-                loss = (obj * active).sum() / torch.clamp(active.sum(), min=1e-9)
+                loss = (obj * active).sum() / torch.clamp(denom, min=1e-9)
             else:
-                loss = obj.mean()
-            return loss, ev.entropy, ratio.mean()
+                loss = obj.sum() / count
+            return loss, ev.entropy, ratio.sum() / count
 
         with self._phase("gradient"):
             head = forward()
             loss0, entropy, ratio_mean = surrogate(head)
             g = _flat_grad(loss0, params, retain_graph=True).detach()
-            loss0, entropy, ratio_mean = loss0.detach(), entropy.detach(), ratio_mean.detach()
+            g, loss0, entropy, ratio_mean = reduce(g, loss0.detach(), entropy.detach(),
+                                                   ratio_mean.detach())
             # cloned: a Box head's log_std is a view of the parameter, which
             # the line search overwrites in place
             old_head = tuple(h.detach().clone() for h in head)
-            kl_grad = _flat_grad(self._kl(head, old_head), params, create_graph=True)
+            kl_grad = _flat_grad(self._kl(head, old_head, count), params, create_graph=True)
         self.last_fvps = 0
 
         def fvp(v: torch.Tensor) -> torch.Tensor:
             """(H_kl + damping·I)·v."""
             self.last_fvps += 1
-            hv = _flat_grad(kl_grad @ v, params, retain_graph=True)
+            (hv,) = reduce(_flat_grad(kl_grad @ v, params, retain_graph=True))
             return hv + FVP_DAMPING * v
 
         with self._phase("cg"):
@@ -196,8 +213,7 @@ class HATRPOActor(HAPPOActor):
             for _ in range(self.ls_step):
                 _assign(params, params_flat + fraction * full_step)
                 head = forward()
-                new_loss = surrogate(head)[0]
-                kl = self._kl(head, old_head)
+                new_loss, kl = reduce(surrogate(head)[0], self._kl(head, old_head, count))
                 improve = new_loss - loss0
                 self.last_tries.append((kl, improve, expected))
                 ok = (kl < self.kl_threshold) & (improve / expected > self.accept_ratio) & (

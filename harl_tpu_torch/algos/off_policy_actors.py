@@ -27,6 +27,7 @@ from harl_tpu_torch.models.policies import (DeterministicPolicy, SquashedGaussia
                                             StochasticMlpPolicy)
 from harl_tpu_torch.models.values import DuelingQNet
 from harl_tpu_torch.ops import distributions as D
+from harl_tpu_torch.parallel.mesh import LOCAL, Mesh
 from harl_tpu_torch.utils import spaces
 
 
@@ -66,11 +67,13 @@ class _OffPolicyActor:
     def _make_policy(self, generator) -> nn.Module:
         raise NotImplementedError
 
-    def init(self, generator: Optional[torch.Generator] = None) -> OffPolicyAgentState:
-        """A fresh policy, its target (equal to it) and its Adam."""
+    def init(self, generator: Optional[torch.Generator] = None,
+             mesh: Mesh = LOCAL) -> OffPolicyAgentState:
+        """A fresh policy, its target (equal to it) and its Adam (summing
+        the gradients over the ``mesh``'s ranks)."""
         net = self._make_policy(generator)
         return OffPolicyAgentState(net, copy.deepcopy(net).requires_grad_(False),
-                                   adam(net.parameters(), self.lr))
+                                   adam(net.parameters(), self.lr, mesh))
 
     def explore_noise(self, noise, batch: int):
         """The draws of one exploration action: standard normals (batch, d)."""

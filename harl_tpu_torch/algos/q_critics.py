@@ -21,6 +21,12 @@ fields are agent-major (N·batch, ·), so the joint actions, next joint actions
 and next log-probabilities are tiled N times over the rows, and the soft
 critic with ``use_policy_active_masks`` averages its loss over valid
 transitions only (soft_twin_continuous_q_critic.py:128-147, 175-237).
+
+A rank of a data-parallel ``mesh`` (``parallel/mesh.py``; one rank by
+default) trains on its block of the sample's rows (``train(…, mesh,
+rows)``): every mean is its sum over the global ``rows``, the
+valid-transition count and the ValueNorm moments are all-reduced, and the
+Adams sum the gradients over the ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from harl_tpu_torch.algos.common import adam, huber_loss, soft_update
 from harl_tpu_torch.models.values import ContinuousQNet, DuelingQNet
 from harl_tpu_torch.ops.value_norm import (ValueNormState, denormalize, init_value_norm,
                                            normalize, update_value_norm)
+from harl_tpu_torch.parallel.mesh import LOCAL, Mesh
 from harl_tpu_torch.utils import spaces
 
 def onehot_dim(space) -> int:
@@ -100,7 +107,8 @@ class ContinuousQCritic:
         self.activation_func = cfg.get("activation_func", "relu")
         self.joint_dim = sum(onehot_dim(sp) for sp in act_spaces)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> QCriticState:
+    def init(self, generator: Optional[torch.Generator] = None,
+             mesh: Mesh = LOCAL) -> QCriticState:
         nets = nn.ModuleList(
             ContinuousQNet(self.share_obs_dim, self.joint_dim, self.hidden_sizes,
                            self.activation_func, self.device, generator)
@@ -109,9 +117,9 @@ class ContinuousQCritic:
         log_alpha = alpha_opt = None
         if self.soft and self.auto_alpha:
             log_alpha = torch.zeros((), device=self.device, requires_grad=True)
-            alpha_opt = adam([log_alpha], self.alpha_lr)
+            alpha_opt = adam([log_alpha], self.alpha_lr, mesh)
         return QCriticState(
-            nets, targets, adam(nets.parameters(), self.critic_lr), log_alpha, alpha_opt,
+            nets, targets, adam(nets.parameters(), self.critic_lr, mesh), log_alpha, alpha_opt,
             init_value_norm(1, device=self.device) if self.use_valuenorm else None)
 
     # -- evaluation ---------------------------------------------------------
@@ -126,9 +134,10 @@ class ContinuousQCritic:
     # -- training -----------------------------------------------------------
     def train(self, state: QCriticState, sample, next_joint_actions: torch.Tensor,
               next_logp: Optional[torch.Tensor] = None,
-              alpha=None) -> torch.Tensor:
+              alpha=None, mesh: Mesh = LOCAL, rows: Optional[int] = None) -> torch.Tensor:
         """One Adam step on the n-step TD loss; updates ``state`` in place
-        and returns the loss (a tensor on the device)."""
+        and returns the loss (a tensor on the device): this rank's share of
+        it, its sum over ``rows`` global rows (by default its own)."""
         joint_actions = encode_joint_actions(sample.actions, self.act_spaces)
         valid = None
         if self.fp_agents > 1:
@@ -146,21 +155,23 @@ class ContinuousQCritic:
                 if vn is not None:
                     q_targets = sample.rewards + sample.gamma * (
                         denormalize(vn, next_q) - alpha * next_logp) * not_end
-                    vn = update_value_norm(vn, q_targets)
+                    vn = update_value_norm(vn, q_targets, mesh=mesh)
                     q_targets = normalize(vn, q_targets)
                 else:
                     q_targets = sample.rewards + sample.gamma * (
                         next_q - alpha * next_logp) * not_end
             else:
                 q_targets = sample.rewards + sample.gamma * next_q * not_end
+        if valid is not None:
+            (denom,) = mesh.all_reduce_sum([valid.sum()])
         loss = 0.0
         for net in state.nets:
             err = net(sample.share_obs, joint_actions) - q_targets
             e = huber_loss(err, self.huber_delta) if self.use_huber_loss else err ** 2
             if valid is not None:
-                loss = loss + (e * valid).sum() / torch.clamp(valid.sum(), min=1e-9)
+                loss = loss + (e * valid).sum() / torch.clamp(denom, min=1e-9)
             else:
-                loss = loss + e.mean()
+                loss = loss + e.sum() / (rows or e.numel())
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()
@@ -168,10 +179,12 @@ class ContinuousQCritic:
         return loss.detach()
 
     def update_alpha(self, state: QCriticState, logp_sum: torch.Tensor,
-                     target_entropy: float) -> None:
+                     target_entropy: float, rows: Optional[int] = None) -> None:
         """Critic-side auto-α (soft_twin_continuous_q_critic.py:44-57), log α
-        clamped to [−16, 2] after the step (q_critics.py:179-197)."""
-        loss = -(state.log_alpha * (logp_sum + target_entropy).detach()).mean()
+        clamped to [−16, 2] after the step (q_critics.py:179-197); the mean
+        is the sum over ``rows`` global rows (by default this rank's)."""
+        loss = state.log_alpha * (logp_sum + target_entropy).detach()
+        loss = -loss.sum() / (rows or loss.numel())
         state.alpha_opt.zero_grad(set_to_none=True)
         loss.backward()
         state.alpha_opt.step()
@@ -223,12 +236,13 @@ class DiscreteQCritic:
             dueling_a_hidden_sizes=tuple(cfg.get("dueling_a_hidden_sizes", [128])),
             dueling_a_activation_func=cfg.get("dueling_a_activation_func", "hardswish"))
 
-    def init(self, generator: Optional[torch.Generator] = None) -> QCriticState:
+    def init(self, generator: Optional[torch.Generator] = None,
+             mesh: Mesh = LOCAL) -> QCriticState:
         nets = nn.ModuleList([DuelingQNet(self.share_obs_dim, self.joint_action_dim,
                                           device=self.device, generator=generator,
                                           **self.net_kwargs)])
         targets = copy.deepcopy(nets).requires_grad_(False)
-        return QCriticState(nets, targets, adam(nets.parameters(), self.critic_lr))
+        return QCriticState(nets, targets, adam(nets.parameters(), self.critic_lr, mesh))
 
     # mixed-radix codecs (discrete_q_critic.py:149-217)
     def indiv_to_joint(self, actions) -> torch.Tensor:
@@ -270,11 +284,13 @@ class DiscreteQCritic:
         return torch.take_along_dim(self.q_all(state.nets, share_obs),
                                     self.indiv_to_joint(actions), dim=-1)
 
-    def train(self, state: QCriticState, sample, next_actions) -> torch.Tensor:
+    def train(self, state: QCriticState, sample, next_actions, mesh: Mesh = LOCAL,
+              rows: Optional[int] = None) -> torch.Tensor:
         """One Adam step on mean (Q(s, a) − (r + γⁿ·Q′(s′, a′)·(1 − term)))²
         (``dones`` in place of ``terms`` without ``use_proper_time_limits``);
         ``next_actions`` are the agents' greedy target actions (…, 1).
-        Updates ``state`` in place and returns the loss."""
+        Updates ``state`` in place and returns the loss: this rank's sum
+        over ``rows`` global rows (by default its own)."""
         with torch.no_grad():
             next_q = torch.take_along_dim(self.q_all(state.targets, sample.next_share_obs),
                                           self.indiv_to_joint(next_actions), dim=-1)
@@ -282,7 +298,8 @@ class DiscreteQCritic:
             q_targets = sample.rewards + sample.gamma * next_q * not_end
         q = torch.take_along_dim(self.q_all(state.nets, sample.share_obs),
                                  self.indiv_to_joint(sample.actions), dim=-1)
-        loss = ((q - q_targets) ** 2).mean()
+        loss = (q - q_targets) ** 2
+        loss = loss.sum() / (rows or loss.numel())
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()

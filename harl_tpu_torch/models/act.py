@@ -96,9 +96,11 @@ class ActEval(NamedTuple):
 def act_evaluate(head_out, action_space, action: torch.Tensor,
                  available_actions: Optional[torch.Tensor] = None,
                  active_masks: Optional[torch.Tensor] = None,
-                 std_x_coef: float = 1.0, std_y_coef: float = 0.5) -> ActEval:
+                 std_x_coef: float = 1.0, std_y_coef: float = 0.5,
+                 entropy_denom: Optional[torch.Tensor] = None) -> ActEval:
     """Log-prob of given actions + entropy, Σ(ent·mask)/Σmask with active
-    masks, else the mean (act.py:109-149). MultiDiscrete: the log-prob is
+    masks, else the mean (act.py:109-149); ``entropy_denom`` replaces Σmask
+    (a data-parallel rank's share: the global count). MultiDiscrete: the log-prob is
     the sum over sub-heads, the entropy the sum of the sub-entropies before
     the masked mean (the reference broadcasts the mask wrongly there,
     act.py:127-133; the JAX package's fix is kept)."""
@@ -116,9 +118,7 @@ def act_evaluate(head_out, action_space, action: torch.Tensor,
             dist = D.DiagGaussian(mean, D.diag_gaussian_std(log_std, std_x_coef, std_y_coef))
         lp = dist.log_prob(action)
         ent = dist.entropy()
-    if active_masks is not None:
-        am = active_masks[..., 0]
-        entropy = (ent * am).sum() / torch.clamp(am.sum(), min=1e-9)
-    else:
-        entropy = ent.mean()
+    am = torch.ones_like(ent) if active_masks is None else active_masks[..., 0]
+    denom = am.sum() if entropy_denom is None else entropy_denom
+    entropy = (ent * am).sum() / torch.clamp(denom, min=1e-9)
     return ActEval(lp, entropy)

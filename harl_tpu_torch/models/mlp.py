@@ -46,14 +46,43 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 def get_init(initialization_method: str, gain: float):
     """Weight initializer ``fn(weight, generator)`` (models_tools.py:38-60).
 
-    Only orthogonal init is ported; the JAX package's other methods are on
-    the roadmap. The port reproduces the init statistics, not the values.
+    ``orthogonal_`` scales by ``gain``; the other four are flax's
+    ``xavier_uniform``, ``xavier_normal``, ``he_uniform`` and ``he_normal``,
+    which the JAX package uses and which ignore ``gain``. The port
+    reproduces the init statistics, not the values.
     """
     if initialization_method == "orthogonal_":
         return lambda w, generator: nn.init.orthogonal_(w, gain=gain, generator=generator)
-    raise NotImplementedError(
-        f"initialization_method {initialization_method!r} is not ported yet "
-        "(ROADMAP.md, options of the ported modules); use 'orthogonal_'")
+    if initialization_method not in VARIANCE_SCALING:
+        raise ValueError(f"Unknown initialization method {initialization_method}")
+    scale, mode, distribution = VARIANCE_SCALING[initialization_method]
+    return lambda w, generator: variance_scaling_(w, scale, mode, distribution, generator)
+
+
+# flax's initializers as variance_scaling(scale, mode, distribution)
+VARIANCE_SCALING = {
+    "xavier_uniform_": (1.0, "fan_avg", "uniform"),
+    "xavier_normal_": (1.0, "fan_avg", "truncated_normal"),
+    "kaiming_uniform_": (2.0, "fan_in", "uniform"),
+    "kaiming_normal_": (2.0, "fan_in", "truncated_normal"),
+}
+# std of a standard normal truncated to [-2, 2]: flax divides by it
+TRUNCATED_STD = 0.87962566103423978
+
+
+def variance_scaling_(w: torch.Tensor, scale: float, mode: str, distribution: str,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``flax.linen.initializers.variance_scaling`` in place: variance
+    scale/fan, the fans of a torch weight (out, in, *kernel) being flax's
+    (*kernel, in, out) ones; "uniform" on ±√(3·variance),
+    "truncated_normal" a normal truncated to ±2σ rescaled to the variance."""
+    fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(w)
+    variance = scale / (fan_in if mode == "fan_in" else (fan_in + fan_out) / 2.0)
+    if distribution == "uniform":
+        limit = math.sqrt(3.0 * variance)
+        return nn.init.uniform_(w, -limit, limit, generator=generator)
+    std = math.sqrt(variance) / TRUNCATED_STD
+    return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
 def make_linear(in_dim: int, out_dim: int, init, device, generator) -> nn.Linear:
@@ -68,8 +97,7 @@ def make_linear(in_dim: int, out_dim: int, init, device, generator) -> nn.Linear
 def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's default Dense kernel init: variance_scaling(1, fan_in,
     truncated_normal), a normal truncated to ±2σ rescaled to variance 1/fan_in."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    return variance_scaling_(w, 1.0, "fan_in", "truncated_normal", generator)
 
 
 class PlainMLP(nn.Module):

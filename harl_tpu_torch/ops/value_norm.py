@@ -7,9 +7,12 @@ state is a small dataclass of tensors; every function returns a new state.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
+
+from harl_tpu_torch.parallel.mesh import LOCAL, Mesh
 
 
 @dataclasses.dataclass
@@ -40,15 +43,28 @@ def _debiased_mean_var(state: ValueNormState,
 
 @torch.no_grad()
 def update_value_norm(state: ValueNormState, input_vector: torch.Tensor,
-                      beta: float = 0.99999) -> ValueNormState:
-    """EMA update over all leading axes (valuenorm.py:54-75)."""
+                      beta: float = 0.99999, per_element_update: bool = False,
+                      mesh: Mesh = LOCAL) -> ValueNormState:
+    """EMA update over all leading axes (valuenorm.py:54-75). With
+    ``per_element_update`` the weight is β to the power of the rows
+    averaged. Each rank of a data-parallel ``mesh`` (``parallel/mesh.py``;
+    one rank by default) holds some of the rows: the moments and the row
+    count are the global ones, summed over the ranks in one all-reduce."""
     axes = tuple(range(input_vector.dim() - state.running_mean.dim()))
-    batch_mean = input_vector.mean(dim=axes)
-    batch_sq_mean = (input_vector ** 2).mean(dim=axes)
+    count = torch.tensor(float(math.prod(input_vector.shape[a] for a in axes)),
+                         dtype=input_vector.dtype, device=input_vector.device)
+    total, total_sq, count = mesh.all_reduce_sum([
+        input_vector.sum(dim=axes), (input_vector ** 2).sum(dim=axes), count])
+    batch_mean, batch_sq_mean = total / count, total_sq / count
+    weight, rest = beta, 1.0 - beta
+    if per_element_update:
+        # β^n and 1 − β^n in float64, as the JAX package's Python floats
+        w = beta ** count.double()
+        weight, rest = w.to(count.dtype), (1.0 - w).to(count.dtype)
     return ValueNormState(
-        running_mean=state.running_mean * beta + batch_mean * (1.0 - beta),
-        running_mean_sq=state.running_mean_sq * beta + batch_sq_mean * (1.0 - beta),
-        debiasing_term=state.debiasing_term * beta + (1.0 - beta),
+        running_mean=state.running_mean * weight + batch_mean * rest,
+        running_mean_sq=state.running_mean_sq * weight + batch_sq_mean * rest,
+        debiasing_term=state.debiasing_term * weight + rest,
     )
 
 

@@ -1,7 +1,8 @@
 """What both runners share: padded action stacking, the deterministic
-evaluation loop over auto-reset envs, and the seeds of the generators that
+evaluation loop over auto-reset envs, the seeds of the generators that
 evaluation and rendering draw from (so they never move the training
-generator)."""
+generator), and how a runner takes its rank's env columns under data
+parallelism."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -9,6 +10,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.parallel.mesh import LOCAL, ShardedNoise, tensors_of
+from harl_tpu_torch.utils import checkpoint
 from harl_tpu_torch.utils.noise import GeneratorNoise
 
 # salts of the evaluation and render generators: the constants the JAX
@@ -16,8 +19,34 @@ from harl_tpu_torch.utils.noise import GeneratorNoise
 ON_POLICY_EVAL_SALT = 7777
 OFF_POLICY_EVAL_SALT = 31337
 RENDER_SALT = 4242
-MESH_TODO = ("data parallelism over several devices or processes is not ported yet "
-             "(ROADMAP.md, Queue A, tooling: parallel/mesh.py)")
+
+
+def attach_mesh(runner, mesh) -> None:
+    """Point ``runner`` at its rank's env columns of a data-parallel
+    ``mesh`` (``parallel/mesh.py``; None: ``LOCAL``, all of them): its
+    ``mesh``, its ``n_envs`` local envs, its ``VecEnv``, its env-axis noise
+    source and ``env_cols``, the global index of each local env (host
+    int64). ``ValueError`` where the ranks do not divide
+    ``n_rollout_threads``, as a ``NamedSharding`` of the env axis fails in
+    JAX."""
+    B = runner.n_rollout_threads
+    mesh = runner.mesh = mesh or LOCAL
+    if B % mesh.world:
+        raise ValueError(f"n_rollout_threads {B} does not split over {mesh.world} ranks")
+    runner.n_envs = B // mesh.world
+    runner.noise = ShardedNoise(runner.base_noise, mesh, B)
+    lo = mesh.row_range(B)[0]
+    runner.env_cols = torch.arange(lo, lo + runner.n_envs)
+    runner.vec = VecEnv(runner.env, runner.n_envs)
+
+
+def replica_tensors(state, buffer: bool = True) -> List[torch.Tensor]:
+    """The tensors of a runner's state that data parallelism keeps equal on
+    every rank: networks, targets, optimizer states, α, ValueNorm and (with
+    ``buffer``) the replay buffer, in a fixed order; not the env carry."""
+    payload = checkpoint.to_payload(state)
+    return tensors_of({k: v for k, v in payload.items()
+                       if k != "carry" and (buffer or k != "buffer")})
 
 
 def stack_actions(acts: List[torch.Tensor]) -> torch.Tensor:

@@ -35,8 +35,23 @@ intervals, keeping the newest two (the state holds the replay buffer), and a
 resume from ``model_dir``.
 
 Ported: the EP and FP states, Box, Discrete and (HASAC) MultiDiscrete
-actions, pure-tensor envs. ``share_param``, host envs and meshes raise
-``NotImplementedError`` naming their roadmap item.
+actions, pure-tensor envs, ``share_param`` (one actor state and optimizer
+for every agent: each agent's step in the update order moves it) and data
+parallelism (``run(mesh=…)``). Host envs raise ``NotImplementedError``
+naming their roadmap item.
+
+Data parallelism (``parallel/mesh.py``), the JAX package's layout: the
+replay buffer is replicated. Rank r of W steps its B/W env columns,
+drawing every env-axis random number at the global B and keeping its rows;
+each step's transitions are gathered over the ranks (``gather_rows``, one
+all-reduce) and every rank inserts the same global rows, so the buffers
+stay equal to the one-rank run's. Every rank draws the same sample
+indices; rank r trains on its block of the sample's rows, with the
+sample-axis draws (HASAC's, the target smoothing normals) made at the
+global batch and cut the same way, every mean a sum over the global count
+(the FP valid-transition count all-reduced), and the gradients summed over
+the ranks before each Adam step. The collect block's metrics are global.
+Rank 0 alone evaluates, logs and writes checkpoints.
 
 Randomness comes from one ``torch.Generator`` per runner on its device, and
 one on the host for the agent orders, both seeded by ``init_state(seed)``,
@@ -83,7 +98,7 @@ from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, DiscreteQCritic, 
                                             SoftTwinContinuousQCritic, TwinContinuousQCritic)
 from harl_tpu_torch.buffers.off_policy import ReplayBuffer, ReplayBufferFP, Sample
 from harl_tpu_torch.envs import make_env
-from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.parallel.mesh import ShardedNoise, gather_tree, shard_tree
 from harl_tpu_torch.runners import common
 from harl_tpu_torch.utils import checkpoint
 from harl_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -145,20 +160,17 @@ class OffPolicyRunner:
         self.auto_alpha = al.get("auto_alpha", False)
         self.alpha_fixed = al.get("alpha", 0.2)
         self.alpha_lr = al.get("alpha_lr", 3e-4)
-        if al.get("share_param", False):
-            raise NotImplementedError("off-policy share_param is not ported yet "
-                                      "(ROADMAP.md, Queue A: what the off-policy path left)")
+        self.share_param = al.get("share_param", False)
         env = make_env(args["env"], env_args, self.device)
         self.env = env
-        self.vec = VecEnv(env, self.n_rollout_threads)
         self.n_agents = env.n_agents
         self.act_spaces = env.action_space
         self.obs_dims = [sp.shape[0] for sp in env.observation_space]
         self.share_obs_dim = env.share_observation_space[0].shape[0]
         self.fp = getattr(env, "state_type", env_args.get("state_type", "EP")) == "FP"
         if self.fp and getattr(env, "fp_state_dim", None) is None:
-            raise NotImplementedError(
-                f"{args['env']} has no FP state (ROADMAP.md, remaining pure-JAX envs)")
+            # the JAX runner cannot run it either (on_policy.py:245)
+            raise ValueError(f"state_type FP: {args['env']} has no FP state")
         if self.fp and self.algo == "had3qn":
             # the joint-action DiscreteQCritic has no FP form (off_policy.py:143-149)
             raise ValueError("off-policy FP: had3qn's joint critic has no FP form")
@@ -166,9 +178,17 @@ class OffPolicyRunner:
         cfg = {**al, **md, "use_proper_time_limits": self.use_proper_time_limits,
                "use_valuenorm": tr.get("use_valuenorm", False),
                "_fp_agents": self.n_agents if self.fp else 1}
-        self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
-                                                 self.device)
-                       for i in range(self.n_agents)]
+        if self.share_param:
+            # homogeneity check (off_policy.py:156-160)
+            if not (all(d == self.obs_dims[0] for d in self.obs_dims)
+                    and all(sp == self.act_spaces[0] for sp in self.act_spaces)):
+                raise ValueError("share_param requires homogeneous agents")
+            self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[0], self.act_spaces[0], cfg,
+                                                     self.device)] * self.n_agents
+        else:
+            self.actors = [ACTOR_REGISTRY[self.algo](self.obs_dims[i], self.act_spaces[i], cfg,
+                                                     self.device)
+                           for i in range(self.n_agents)]
         self.discrete = self.actors[0].kind == "Discrete"
         self.act_dims = [actor.act_dim for actor in self.actors]
         self.critic = CRITIC_REGISTRY[self.algo](self.share_obs_dim, self.act_spaces, cfg,
@@ -183,10 +203,23 @@ class OffPolicyRunner:
             for actor in self.actors]
         self.generator = torch.Generator(device=self.device)
         self.host_generator = torch.Generator()
-        self.noise = noise if noise is not None else GeneratorNoise(
+        self.base_noise = noise if noise is not None else GeneratorNoise(
             self.generator, self.device, self.host_generator)
+        self.use_mesh(None)
         self.seed = 0
 
+    def use_mesh(self, mesh) -> None:
+        """Take the rank's env columns and its block of each sample's rows
+        (``batch_local`` of ``batch_size``) under a data-parallel ``mesh``,
+        or all of them for None (``LOCAL``); ``run(mesh=…)`` calls it."""
+        common.attach_mesh(self, mesh)
+        self.sample_rows = self.mesh.row_range(self.batch_size)
+        self.sample_noise = ShardedNoise(self.base_noise, self.mesh, self.batch_size)
+        self.batch_local = self.sample_rows[1] - self.sample_rows[0]
+
+    def _sidx(self, i: int) -> int:
+        """Agent i's entry of ``OffPolicyState.actors``."""
+        return 0 if self.share_param else i
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int) -> OffPolicyState:
         """Seed the generator, reset the envs, build fresh networks (targets
@@ -195,14 +228,14 @@ class OffPolicyRunner:
         self.host_generator.manual_seed(seed)
         env_state, ts = self.vec.reset(self.noise)
         actors = []
-        for actor in self.actors:
-            st = actor.init(self.generator)
+        for actor in self.actors[:1 if self.share_param else self.n_agents]:
+            st = actor.init(self.generator, self.mesh)
             if self.algo == "hasac" and self.auto_alpha:
                 st.log_alpha = torch.zeros((), device=self.device, requires_grad=True)
-                st.alpha_opt = adam([st.log_alpha], self.alpha_lr)
+                st.alpha_opt = adam([st.log_alpha], self.alpha_lr, self.mesh)
             actors.append(st)
-        critic = self.critic.init(self.generator)
-        B, N = self.n_rollout_threads, self.n_agents
+        critic = self.critic.init(self.generator, self.mesh)
+        B, N = self.n_envs, self.n_agents
         dims = (self.share_obs_dim, self.obs_dims, self.act_dims, self.device,
                 [sp.n for sp in self.act_spaces] if self.discrete else None)
         buf = ReplayBufferFP(self.buffer_size, N, *dims) if self.fp else ReplayBuffer(
@@ -235,16 +268,15 @@ class OffPolicyRunner:
 
     def _env_actions(self, actors: List[OffPolicyAgentState], carry: OffRolloutCarry):
         """Every agent's exploration action: (stacked (B, N, max d), per agent)."""
-        B = self.n_rollout_threads
-        acts = [actor.get_actions(actors[i].net, self._obs_i(carry.obs, i),
+        B = self.n_envs
+        acts = [actor.get_actions(actors[self._sidx(i)].net, self._obs_i(carry.obs, i),
                                   actor.explore_noise(self.noise, B),
                                   self._avail_i(carry.avail, i))
                 for i, actor in enumerate(self.actors)]
         return common.stack_actions(acts), acts
 
     def _random_actions(self):
-        acts = [actor.random_actions(self.noise, self.n_rollout_threads)
-                for actor in self.actors]
+        acts = [actor.random_actions(self.noise, self.n_envs) for actor in self.actors]
         return common.stack_actions(acts), acts
 
     def _env_step_insert(self, state: OffPolicyState, stacked: torch.Tensor,
@@ -281,6 +313,11 @@ class OffPolicyRunner:
                 available_actions=[self._avail_i(carry.avail, i) for i in range(N)],
                 next_available_actions=[self._avail_i(final.available_actions, i)
                                         for i in range(N)])
+        # every rank's rows, in one all-reduce; the buffer stores floats, so
+        # integer actions travel as (exact) floats
+        batch = gather_tree(self.mesh, {
+            k: [x.to(torch.float32) for x in v] if isinstance(v, list)
+            else v.to(torch.float32) for k, v in batch.items()})
         state.buffer.insert(batch)
         done = done_env[:, 0] > 0
         ep_ret = carry.ep_ret + final.rewards[:, :, 0].mean(dim=1)
@@ -307,54 +344,73 @@ class OffPolicyRunner:
             emitted.append(e)
             counts.append(c)
             rewards.append(r)
-        return state, dict(episode_return_sum=torch.stack(emitted).sum(),
-                           episode_count=torch.stack(counts).sum(),
-                           mean_step_reward=torch.stack(rewards).mean())
+        sums = [torch.stack(emitted).sum(), torch.stack(counts).sum(), torch.stack(rewards).mean()]
+        # the ranks hold as many envs: the global mean reward is the mean of
+        # theirs
+        sums = self.mesh.all_reduce_sum(sums)
+        sums[2] = sums[2] / self.mesh.world
+        return state, dict(episode_return_sum=sums[0], episode_count=sums[1],
+                           mean_step_reward=sums[2])
 
     def train_block(self, state: OffPolicyState):
         """``update_per_train × train_interval`` updates; the metrics hold the
         mean critic loss."""
         losses = [self.update(state) for _ in range(self.update_per_train * self.train_interval)]
-        return state, dict(critic_loss=torch.stack(losses).mean())
+        (loss,) = self.mesh.all_reduce_sum([torch.stack(losses).mean()])   # shares add up
+        return state, dict(critic_loss=loss)
 
     def update(self, state: OffPolicyState) -> torch.Tensor:
         """One update (one iteration of the JAX ``train_block``'s scan);
-        returns the critic loss."""
-        sp = state.buffer.sample(self.batch_size, self.n_step, self.gamma,
-                                 self.n_rollout_threads, self.noise)
+        returns the critic loss (this rank's share)."""
+        start = self.noise.indices(self.batch_size, max(state.buffer.cur_size, 1))
+        lo, hi = self.sample_rows
+        sp = state.buffer.sample(self.batch_local, self.n_step, self.gamma,
+                                 self.n_rollout_threads, start=start[lo:hi])
         state.total_it += 1
-        actors = state.actors
+        actors = [state.actors[self._sidx(i)] for i in range(self.n_agents)]
+        B, rows = self.batch_local, self._rows()
         if self.algo == "hasac":
             with torch.no_grad():
                 next_acts, next_logps = [], []
                 for i, actor in enumerate(self.actors):
                     a, lp = actor.get_actions_with_logprobs(
-                        actors[i].net, sp.next_obs[i], actor.draw(self.noise, self.batch_size),
+                        actors[i].net, sp.next_obs[i], actor.draw(self.sample_noise, B),
                         _at(sp.next_available_actions, i))
                     next_acts.append(a)
                     next_logps.append(lp)
                 next_logp = torch.cat(next_logps, dim=-1).sum(dim=-1, keepdim=True)
             loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1), next_logp,
-                                     self._alpha(state.critic))
+                                     self._alpha(state.critic), self.mesh, rows)
         elif self.algo == "had3qn":
             with torch.no_grad():
                 next_acts = [actor.get_target_actions(actors[i].target, sp.next_obs[i])
                              for i, actor in enumerate(self.actors)]
-            loss = self.critic.train(state.critic, sp, next_acts)
+            loss = self.critic.train(state.critic, sp, next_acts, self.mesh, rows)
         else:
             with torch.no_grad():
                 next_acts = []
                 for i, actor in enumerate(self.actors):
-                    noise = (self.noise.action_noise((self.batch_size, self.act_dims[i]))
+                    noise = (self.sample_noise.action_noise((B, self.act_dims[i]))
                              if self.algo in SMOOTHED else None)
                     next_acts.append(actor.get_target_actions(actors[i].target, sp.next_obs[i],
                                                               noise))
-            loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1))
+            loss = self.critic.train(state.critic, sp, torch.cat(next_acts, dim=-1),
+                                     mesh=self.mesh, rows=rows)
         if state.total_it % self.policy_freq == 0:
             self._policy_update(state, sp)
         return loss
 
     # ------------------------------------------------- per-algo actor update
+    def _rows(self, tiled: bool = True) -> int:
+        """Global rows of a sample's env-level fields (``tiled``: N·batch
+        under FP) or of its per-agent fields."""
+        return self.batch_size * (self.n_agents if tiled and self.fp else 1)
+
+    def _mean(self, x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
+        """The mean over a sample's rows: this rank's sum over the global
+        count."""
+        return x.sum() / (self._rows(tiled) * x.shape[-1])
+
     def _policy_update(self, state: OffPolicyState, sp: Sample) -> None:
         if self.algo == "hasac":
             self._hasac_update(state, sp)
@@ -395,52 +451,54 @@ class OffPolicyRunner:
     def _ha_update(self, state: OffPolicyState, sp: Sample) -> None:
         """HADDPG/HATD3 sequential updates (off_policy_ha_runner.py:206-235)."""
         with torch.no_grad():
-            actions = [self.actors[i].get_actions(st.net, sp.obs[i])
-                       for i, st in enumerate(state.actors)]
+            actions = [self.actors[i].get_actions(state.actors[self._sidx(i)].net, sp.obs[i])
+                       for i in range(self.n_agents)]
         for i in self._order():
-            actor, st = self.actors[i], state.actors[i]
+            actor, st = self.actors[i], state.actors[self._sidx(i)]
             joint = self._joint(actions, i, actor.get_actions(st.net, sp.obs[i]))
-            self._step_actor(st, -self.critic.get_values(state.critic, sp.share_obs,
-                                                         joint).mean())
+            self._step_actor(st, -self._mean(self.critic.get_values(state.critic, sp.share_obs,
+                                                                    joint)))
             with torch.no_grad():
                 actions[i] = actor.get_actions(st.net, sp.obs[i])
 
     def _ma_update(self, state: OffPolicyState, sp: Sample) -> None:
         """MADDPG/MATD3: simultaneous; the other agents take the buffer's
         actions (off_policy_ma_runner.py:50-57)."""
-        for i, (actor, st) in enumerate(zip(self.actors, state.actors)):
+        for i, actor in enumerate(self.actors):
+            st = state.actors[self._sidx(i)]
             joint = self._joint(sp.actions, i, actor.get_actions(st.net, sp.obs[i]))
-            self._step_actor(st, -self.critic.get_values(state.critic, sp.share_obs,
-                                                         joint).mean())
+            self._step_actor(st, -self._mean(self.critic.get_values(state.critic, sp.share_obs,
+                                                                    joint)))
 
     def _hasac_update(self, state: OffPolicyState, sp: Sample) -> None:
         """HASAC sequential updates with per-agent and critic-side α
         (off_policy_ha_runner.py:80-172)."""
-        actors, B = state.actors, self.batch_size
+        B = self.batch_local
         with torch.no_grad():
             init = [self.actors[i].get_actions_with_logprobs(
-                st.net, sp.obs[i], self.actors[i].draw(self.noise, B),
-                _at(sp.available_actions, i))
-                for i, st in enumerate(actors)]
+                state.actors[self._sidx(i)].net, sp.obs[i],
+                self.actors[i].draw(self.sample_noise, B), _at(sp.available_actions, i))
+                for i in range(self.n_agents)]
         actions = [a for a, _ in init]
         logps = [lp for _, lp in init]
         for i in self._order():
-            actor, st = self.actors[i], actors[i]
+            actor, st = self.actors[i], state.actors[self._sidx(i)]
             alpha_i = self._alpha(st)
             avail_i = _at(sp.available_actions, i)
-            eps_i = actor.draw(self.noise, B)   # loss and re-sample
+            eps_i = actor.draw(self.sample_noise, B)   # loss and re-sample
             a_i, lp_i = actor.get_actions_with_logprobs(st.net, sp.obs[i], eps_i, avail_i)
             q = self.critic.get_values(state.critic, sp.share_obs, self._joint(actions, i, a_i))
             obj = q - alpha_i * self._tile(lp_i.sum(dim=-1, keepdim=True))
             if self.use_policy_active_masks:
                 vt = self._tile(sp.valid_transitions[i])
-                loss = -(obj * vt).sum() / torch.clamp(vt.sum(), min=1e-9)
+                (denom,) = self.mesh.all_reduce_sum([vt.sum()])
+                loss = -(obj * vt).sum() / torch.clamp(denom, min=1e-9)
             else:
-                loss = -obj.mean()
+                loss = -self._mean(obj)
             self._step_actor(st, loss)
             if self.auto_alpha:
                 target = lp_i.detach().sum(dim=-1, keepdim=True) + self.target_entropy[i]
-                alpha_loss = -(st.log_alpha * target).mean()
+                alpha_loss = -self._mean(st.log_alpha * target, tiled=False)
                 st.alpha_opt.zero_grad(set_to_none=True)
                 alpha_loss.backward()
                 st.alpha_opt.step()
@@ -451,7 +509,8 @@ class OffPolicyRunner:
                                                                        avail_i)
         if self.auto_alpha:
             logp_sum = torch.cat(logps, dim=-1).sum(dim=-1, keepdim=True)
-            self.critic.update_alpha(state.critic, logp_sum, float(sum(self.target_entropy)))
+            self.critic.update_alpha(state.critic, logp_sum, float(sum(self.target_entropy)),
+                                     rows=self._rows(tiled=False))
 
     def _had3qn_update(self, state: OffPolicyState, sp: Sample) -> None:
         """Coordinate descent on the joint critic's argmax
@@ -461,14 +520,14 @@ class OffPolicyRunner:
         critic = self.critic
         with torch.no_grad():
             all_values = critic.q_all(state.critic.nets, sp.share_obs)
-            actions = [actor.get_actions(st.net, sp.obs[i])
-                       for i, (actor, st) in enumerate(zip(self.actors, state.actors))]
+            actions = [actor.get_actions(state.actors[self._sidx(i)].net, sp.obs[i])
+                       for i, actor in enumerate(self.actors)]
         for i in self._order():
-            actor, st = self.actors[i], state.actors[i]
+            actor, st = self.actors[i], state.actors[self._sidx(i)]
             critic_values = torch.take_along_dim(all_values, critic.indiv_to_joint(actions),
                                                  dim=-1)
             av = actor.train_values(st.net, sp.obs[i], actions[i])
-            self._step_actor(st, ((av - critic_values) ** 2).mean())
+            self._step_actor(st, self._mean((av - critic_values) ** 2))
             vals = torch.take_along_dim(all_values, critic.get_joint_idx(actions, i), dim=-1)
             actions[i] = torch.argmax(vals, dim=-1, keepdim=True)
 
@@ -484,7 +543,7 @@ class OffPolicyRunner:
         return, episodes ended, {metric: sum}) as tensors."""
         def act(obs, avail, masks, rnn):
             return common.stack_actions([
-                actor.deterministic_actions(state.actors[i].net, self._obs_i(obs, i),
+                actor.deterministic_actions(state.actors[self._sidx(i)].net, self._obs_i(obs, i),
                                             self._avail_i(avail, i))
                 for i, actor in enumerate(self.actors)]), None
 
@@ -505,12 +564,18 @@ class OffPolicyRunner:
         """The full train state as a plain payload (``utils/checkpoint.py``):
         networks, targets, optimizers, α, the critic's ValueNorm, the replay
         buffer's tensors with its host ``idx``/``cur_size``, the rollout
-        carry, the update count and both generators' states."""
+        carry, the update count and both generators' states. The carry is
+        every rank's env columns: the payload is the one-rank run's."""
+        state = dataclasses.replace(state, carry=gather_tree(self.mesh, state.carry))
         return {"state": checkpoint.to_payload(state),
                 "generator": self.generator.get_state(),
                 "host_generator": self.host_generator.get_state(), "seed": self.seed}
 
     def load_checkpoint(self, state: OffPolicyState, payload: dict) -> OffPolicyState:
+        """Load a payload of ``checkpoint`` into ``state``; each rank takes
+        its env columns of the global carry."""
+        payload = {**payload, "state": {**payload["state"], "carry": shard_tree(
+            self.mesh, payload["state"]["carry"])}}
         state = checkpoint.load_payload(state, payload["state"])
         self.generator.set_state(payload["generator"].cpu())
         self.host_generator.set_state(payload["host_generator"].cpu())
@@ -532,9 +597,12 @@ class OffPolicyRunner:
         ``eval_interval // train_interval`` blocks and at the last, a log
         record (and an evaluation under ``use_eval``); every five such
         intervals and at the last, a checkpoint, keeping the newest two.
-        Returns (state, the log records)."""
-        if mesh is not None:
-            raise NotImplementedError(common.MESH_TODO)
+        Returns (state, the log records). With a ``mesh``
+        (``parallel/mesh.py``) this process trains its rank's env columns;
+        rank 0 alone evaluates, logs and writes, and every rank must get a
+        ``save_dir`` where rank 0 does (the checkpoint gathers the carry)."""
+        self.use_mesh(mesh)
+        main = self.mesh.is_main
         state = self.init_state(seed)
         tr, ev = self.algo_args["train"], self.algo_args.get("eval", {}) or {}
         if tr.get("model_dir"):
@@ -543,7 +611,7 @@ class OffPolicyRunner:
         total_blocks = max(int(self.num_env_steps) // self.n_rollout_threads
                            // self.train_interval, 1)
         blocks_per_eval = max(tr.get("eval_interval", 10000) // self.train_interval, 1)
-        use_eval = ev.get("use_eval", False)
+        use_eval = ev.get("use_eval", False) and main
         n_eval = ev.get("n_eval_rollout_threads", 10)
         history: List[dict] = []
         t_start = time.time()
@@ -570,14 +638,16 @@ class OffPolicyRunner:
                     for k, v in extra.items():
                         rec["eval_win_rate" if k == "won" else f"eval_{k}"] = v
                 history.append(rec)
-                if logger is not None:
+                if logger is not None and main:
                     logger.log_episode(rec)
-                if log_fn:
+                if log_fn and main:
                     log_fn(rec)
                 if save_dir is not None and (block % (blocks_per_eval * 5) == 0
                                              or block == total_blocks):
-                    checkpoint.save_state(save_dir, self.checkpoint(state), steps)
-                    checkpoint.prune_checkpoints(save_dir, keep=2)
+                    payload = self.checkpoint(state)
+                    if main:
+                        checkpoint.save_state(save_dir, payload, steps)
+                        checkpoint.prune_checkpoints(save_dir, keep=2)
         return state, history
 
 

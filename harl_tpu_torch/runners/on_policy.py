@@ -25,10 +25,19 @@ or naive recurrent updates), vector or (H, W, C) pixel observations (the
 actors on ``CNNBase``; the critic's state stays a vector), Box, Discrete
 (with availability masks) and MultiDiscrete actions (``(…, k)`` integer
 rows, one Gumbel draw a sub-head), ``share_param`` (one network and optimizer for every agent), linear
-lr decay, pure-tensor envs. Under FP the critic runs per (env, agent) row,
-the rewards, masks and returns are per agent (T, B, N, 1), and the
-advantages are normalised once across agents. Host envs and meshes are on
-the roadmap.
+lr decay, pure-tensor envs, and data parallelism (``run(mesh=…)``, below).
+Under FP the critic runs per (env, agent) row, the rewards, masks and
+returns are per agent (T, B, N, 1), and the advantages are normalised once
+across agents. Host envs are on the roadmap.
+
+Data parallelism (``parallel/mesh.py``): rank r of W steps the env columns
+[r·B/W, (r+1)·B/W), drawing every env-axis random number at the global B
+and keeping its rows, runs the GAE kernel on its (T, B/W) columns, and
+trains on its rows of every global minibatch (``Share``); the gradients
+are summed over the ranks, so the replicas take the same steps and the run
+equals the one-rank run at the same B up to the order of float sums. The
+iteration's metrics are global. Rank 0 alone evaluates, logs and writes
+checkpoints, which hold the global carry.
 
 Mask bookkeeping (on_policy_base_runner.py:342-460):
   masks[t+1]        = 0 where env done at step t (all agents done)
@@ -67,7 +76,8 @@ import numpy as np
 import torch
 
 from harl_tpu_torch.algos import ON_POLICY_REGISTRY
-from harl_tpu_torch.algos.common import AgentTrainState, aggregate_ratio, make_optimizer
+from harl_tpu_torch.algos.common import (AgentTrainState, Share, aggregate_ratio,
+                                         make_optimizer)
 from harl_tpu_torch.algos.critics import CriticBatch, VCritic
 from harl_tpu_torch.algos.happo import ActorBatch
 from harl_tpu_torch.algos.hatrpo import HATRPOActor
@@ -79,6 +89,7 @@ from harl_tpu_torch.models.values import VNet
 from harl_tpu_torch.ops.returns import (compute_discounted_returns, compute_gae,
                                         normalize_advantages_masked)
 from harl_tpu_torch.ops.value_norm import ValueNormState, denormalize, init_value_norm
+from harl_tpu_torch.parallel.mesh import gather_tree, shard_tree
 from harl_tpu_torch.runners import common
 from harl_tpu_torch.utils import checkpoint, spaces
 from harl_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -163,7 +174,6 @@ class OnPolicyRunner:
 
         env = make_env(args["env"], env_args, self.device)
         self.env = env
-        self.vec = VecEnv(env, self.n_rollout_threads)
         self.n_agents = env.n_agents
         self.act_spaces = env.action_space
         # (H, W, C) observations go whole to a CNN torso (on_policy.py:142)
@@ -173,8 +183,8 @@ class OnPolicyRunner:
         self.share_obs_dim = env.share_observation_space[0].shape[0]
         self.state_type = getattr(env, "state_type", env_args.get("state_type", "EP"))
         if self.fp and getattr(env, "fp_state_dim", None) is None:
-            raise NotImplementedError(
-                f"{args['env']} has no FP state (ROADMAP.md, remaining pure-JAX envs)")
+            # the JAX runner fails on it too (on_policy.py:245)
+            raise ValueError(f"state_type FP: {args['env']} has no FP state")
 
         algo_cfg = {**al, **md}
         if self.share_param:
@@ -187,8 +197,16 @@ class OnPolicyRunner:
             self.actors = [actor_cls(self.act_spaces[i], algo_cfg) for i in range(self.n_agents)]
         self.critic = VCritic(algo_cfg)
         self.generator = torch.Generator(device=self.device)
-        self.noise = noise if noise is not None else GeneratorNoise(self.generator, self.device)
+        self.base_noise = (noise if noise is not None
+                           else GeneratorNoise(self.generator, self.device))
+        self.use_mesh(None)
         self.seed = 0
+
+    def use_mesh(self, mesh) -> None:
+        """Take the rank's env columns of a data-parallel ``mesh``, or all of
+        them for None (``LOCAL``; ``runners/common.py``); ``run(mesh=…)``
+        calls it."""
+        common.attach_mesh(self, mesh)
 
     def _sidx(self, i: int) -> int:
         """Agent i's entry of ``TrainState.actors``."""
@@ -218,7 +236,8 @@ class OnPolicyRunner:
     def _optimizer(self, net, lr: float, updates_per_iteration: int):
         return make_optimizer(net.parameters(), lr, self.md.get("opti_eps", 1e-5),
                               self.md.get("weight_decay", 0.0), self.max_grad_norm,
-                              self.use_linear_lr_decay, self.episodes, updates_per_iteration)
+                              self.use_linear_lr_decay, self.episodes, updates_per_iteration,
+                              self.mesh)
 
     @property
     def fp(self) -> bool:
@@ -241,7 +260,7 @@ class OnPolicyRunner:
         vnet = VNet(self.share_obs_dim, **self._model_kwargs())
         critic = AgentTrainState(vnet, self._optimizer(vnet, md["critic_lr"],
                                                        self.critic_updates))
-        B, N, H = self.n_rollout_threads, self.n_agents, self.hidden_sizes[-1]
+        B, N, H = self.n_envs, self.n_agents, self.hidden_sizes[-1]
         ones = torch.ones((B, N, 1), device=self.device)
 
         def zeros_rnn(rows):
@@ -289,7 +308,7 @@ class OnPolicyRunner:
     def _values(self, critic_net, share_obs, critic_rnn, masks):
         """V of the centralized state: EP (B, 1); FP (B, N, 1) from B·N rows.
         Returns (values, new critic hidden state or None)."""
-        B, N = self.n_rollout_threads, self.n_agents
+        B, N = self.n_envs, self.n_agents
         if self.fp:
             share_obs = share_obs.reshape(B * N, -1)
         if self.use_rnn:
@@ -305,7 +324,7 @@ class OnPolicyRunner:
                                              carry.critic_rnn, carry.masks)
         tr = self.vec.step(carry.env_state, actions, self.noise)
         ts = tr.ts
-        B, N = self.n_rollout_threads, self.n_agents
+        B, N = self.n_envs, self.n_agents
         done_env = ts.dones.all(dim=1)                                 # (B,)
         d3 = done_env[:, None, None]
         ones = torch.ones((B, N, 1), device=self.device)
@@ -407,6 +426,15 @@ class OnPolicyRunner:
                                                  values_den[-1], self.gamma)
         return returns, values_den
 
+    def _share(self, per_env: int = 1, agents: int = 1) -> Share:
+        """This rank's columns of a batch of ``agents`` env-axis blocks
+        side by side, each with ``per_env`` consecutive columns an env (FP
+        critic rows)."""
+        B = self.n_rollout_threads
+        cols = (self.env_cols[:, None] * per_env + torch.arange(per_env)).reshape(-1)
+        return Share(self.mesh, torch.cat([cols + i * B * per_env for i in range(agents)]),
+                     B * per_env * agents)
+
     def update_phase(self, state: TrainState, data, first_masks0, last_share_obs,
                      last_masks=None, last_critic_rnn=None):
         """Returns + sequential actor update + critic train (in place)."""
@@ -417,7 +445,8 @@ class OnPolicyRunner:
         if self.fp:
             # normalised once across agents with the active masks
             # (on_policy_ha_runner.py:36-45)
-            advantages = normalize_advantages_masked(advantages, data["active_masks"])
+            advantages = normalize_advantages_masked(advantages, data["active_masks"],
+                                                     self.mesh)
         avail = data.get("avail")
         batches = [
             ActorBatch(obs=self._obs_i(data["obs"], i),
@@ -444,19 +473,30 @@ class OnPolicyRunner:
             critic_batch = CriticBatch(
                 share_obs=data["share_obs"], value_preds=data["value"], returns=returns,
                 rnn_states=data.get("critic_rnn"), masks=data["masks"][:, :, 0])
-        rows = self.critic.chunking.rows(T, critic_batch.share_obs.shape[1])
+        critic_share = self._share(N if self.fp else 1)
+        rows = self.critic.chunking.rows(T, self.n_rollout_threads * (N if self.fp else 1))
         state.value_norm, critic_stats = self.critic.update(
             state.critic, state.value_norm, critic_batch,
-            self._perms(self.critic.critic_epoch, self.critic.num_mini_batch, rows))
+            self._perms(self.critic.critic_epoch, self.critic.num_mini_batch, rows),
+            share=critic_share)
+        metric_keys = sorted(data["emitted_metrics"])
+        sums = [data["reward"].sum(), data["active_masks"].sum(), data["emitted_ret"].sum(),
+                data["emitted_cnt"].sum()] + [data["emitted_metrics"][k].sum()
+                                              for k in metric_keys]
+        # every rank holds as many rows: the global means are the sums over
+        # W times the local counts
+        sums = self.mesh.all_reduce_sum(sums)
+        mean_step_reward = sums[0] / (data["reward"].numel() * self.mesh.world)
+        active_mean = sums[1] / (data["active_masks"].numel() * self.mesh.world)
         metrics = dict(
             actor_stats=actor_stats,   # (N, [policy_loss, entropy, grad_norm, ratio])
             value_loss=critic_stats[0],
             critic_grad_norm=critic_stats[1],
-            mean_step_reward=data["reward"].mean(),
-            dead_ratio=1.0 - data["active_masks"].mean(),
-            episode_return_sum=data["emitted_ret"].sum(),
-            episode_count=data["emitted_cnt"].sum(),
-            episode_metric_sums={k: v.sum() for k, v in data["emitted_metrics"].items()},
+            mean_step_reward=mean_step_reward,
+            dead_ratio=1.0 - active_mean,
+            episode_return_sum=sums[2],
+            episode_count=sums[3],
+            episode_metric_sums=dict(zip(metric_keys, sums[4:])),
         )
         if isinstance(self.actors[0], HATRPOActor):
             # HATRPO's stats are [improvement, entropy, kl, ratio]; the
@@ -497,8 +537,9 @@ class OnPolicyRunner:
                     old_logp = batch.logp.reshape((-1,) + tuple(batch.logp.shape[2:]))
             stats[i] = actor.update(
                 st, batch, advantages[:, :, i] if self.fp else advantages, factor,
-                self._perms(actor.ppo_epoch, actor.num_mini_batch, actor.chunking.rows(T, B)),
-                state_type=self.state_type)
+                self._perms(actor.ppo_epoch, actor.num_mini_batch,
+                            actor.chunking.rows(T, self.n_rollout_threads)),
+                state_type=self.state_type, share=self._share())
             fractions[i] = getattr(actor, "last_fraction", 0.0)
             if self.factor_chain:
                 new_logp = actor.evaluate_logp(st.net, batch)
@@ -522,8 +563,9 @@ class OnPolicyRunner:
                else advantages.repeat(1, N, 1))
         stats = actor.update(
             state.actors[0], merged, adv, torch.ones((T, B * N, 1), device=self.device),
-            self._perms(actor.ppo_epoch, actor.num_mini_batch, actor.chunking.rows(T, B * N)),
-            state_type=self.state_type)
+            self._perms(actor.ppo_epoch, actor.num_mini_batch,
+                        actor.chunking.rows(T, self.n_rollout_threads * N)),
+            state_type=self.state_type, share=self._share(agents=N))
         return stats[None].expand(N, 4)
 
     # ------------------------------------------------------------------ eval
@@ -598,13 +640,18 @@ class OnPolicyRunner:
     def checkpoint(self, state: TrainState) -> dict:
         """The full train state as a plain payload (``utils/checkpoint.py``):
         networks, optimizers, ValueNorm, the rollout carry with the env
-        state's tensors, and the generator's state."""
+        state's tensors, and the generator's state. The carry is every
+        rank's env columns: the payload is the one-rank run's."""
+        state = dataclasses.replace(state, carry=gather_tree(self.mesh, state.carry))
         return {"state": checkpoint.to_payload(state),
                 "generator": self.generator.get_state(), "seed": self.seed}
 
     def load_checkpoint(self, state: TrainState, payload: dict) -> TrainState:
         """Load a payload of ``checkpoint`` into ``state``; raises
-        ``ValueError`` (and changes nothing) where its structure differs."""
+        ``ValueError`` (and changes nothing) where its structure differs.
+        Each rank takes its env columns of the global carry."""
+        payload = {**payload, "state": {**payload["state"], "carry": shard_tree(
+            self.mesh, payload["state"]["carry"])}}
         state = checkpoint.load_payload(state, payload["state"])
         self.generator.set_state(payload["generator"].cpu())
         self.seed = int(payload["seed"])
@@ -631,9 +678,12 @@ class OnPolicyRunner:
         iterations; a log record every ``log_interval`` iterations and at the
         last; every ``eval_interval`` and at the last, an evaluation (with
         ``use_eval``) and a checkpoint (whether or not eval is on). Returns
-        (state, the log records)."""
-        if mesh is not None:
-            raise NotImplementedError(common.MESH_TODO)
+        (state, the log records). With a ``mesh`` (``parallel/mesh.py``)
+        this process trains its rank's env columns; rank 0 alone
+        evaluates, logs, traces and writes, and every rank must get a
+        ``save_dir`` where rank 0 does (the checkpoint gathers the carry)."""
+        self.use_mesh(mesh)
+        main = self.mesh.is_main
         state = self.init_state(seed)
         tr, ev = self.algo_args["train"], self.algo_args.get("eval", {}) or {}
         if tr.get("model_dir"):
@@ -641,9 +691,9 @@ class OnPolicyRunner:
         steps_per_iter = self.episode_length * self.n_rollout_threads
         log_interval = tr.get("log_interval", 5)
         eval_interval = tr.get("eval_interval", 25)
-        use_eval = ev.get("use_eval", False)
+        use_eval = ev.get("use_eval", False) and main
         n_eval = ev.get("n_eval_rollout_threads", 10)
-        profile_dir, trace = tr.get("profile_trace_dir"), None
+        profile_dir, trace = tr.get("profile_trace_dir") if main else None, None
         history: List[dict] = []
         t_start = time.time()
         last_return = math.nan
@@ -675,15 +725,15 @@ class OnPolicyRunner:
                         for k, v in metrics["episode_metric_sums"].items():
                             rec["win_rate" if k == "won" else k] = float(v) / count
                     history.append(rec)
-                    if logger is not None:
+                    if logger is not None and main:
                         logger.log_episode(rec)
-                    if log_fn:
+                    if log_fn and main:
                         log_fn(rec)
                 if episode % eval_interval == 0 or episode == self.episodes:
                     if use_eval:
                         eval_ret, extra = self.evaluate(state, n_eval,
                                                         ev.get("eval_episodes", n_eval))
-                        if logger is not None:
+                        if logger is not None and main:
                             logger.log_eval(episode * steps_per_iter, eval_ret, extra)
                         if history:
                             history[-1]["eval_return"] = eval_ret
@@ -692,8 +742,9 @@ class OnPolicyRunner:
                     # saved every eval_interval whether or not eval is on
                     # (on_policy_base_runner.py:260-265)
                     if save_dir is not None:
-                        checkpoint.save_state(save_dir, self.checkpoint(state),
-                                              episode * steps_per_iter)
+                        payload = self.checkpoint(state)
+                        if main:
+                            checkpoint.save_state(save_dir, payload, episode * steps_per_iter)
         finally:
             if trace is not None:
                 stop_trace(trace)

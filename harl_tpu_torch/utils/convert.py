@@ -16,7 +16,8 @@ the off-policy networks on ``PlainMLP`` (``fc{i}`` → ``fc.{i}``):
 the last also as a tuple of twin nets, and HAD3QN's ``DuelingQNet`` (alone,
 or as the critic's tuple of one). Discrete HASAC's ``StochasticMlpPolicy``
 has ``StochasticPolicy``'s names (``base``, ``act/head``), so
-``policy_state_dict`` converts it.
+``policy_state_dict`` converts it. ``plain_cnn_state_dict`` converts a
+``PlainCNN`` (``conv``, ``fc``).
 """
 from __future__ import annotations
 
@@ -42,8 +43,7 @@ def _mlp_base(p: Mapping) -> Dict[str, torch.Tensor]:
     """``MLPBase`` or, with a ``conv``, ``CNNBase``."""
     out: Dict[str, torch.Tensor] = {}
     if "conv" in p:
-        out["base.conv.weight"] = _t(np.transpose(np.asarray(p["conv"]["kernel"]), (3, 2, 0, 1)))
-        out["base.conv.bias"] = _t(p["conv"]["bias"])
+        out.update(_conv("base.conv", p["conv"]))
     if "feature_norm" in p:
         out.update(_layer_norm("base.feature_norm", p["feature_norm"]))
     i = 0
@@ -52,6 +52,12 @@ def _mlp_base(p: Mapping) -> Dict[str, torch.Tensor]:
         out.update(_layer_norm(f"base.ln.{i}", p[f"ln{i}"]))
         i += 1
     return out
+
+
+def _conv(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``Conv`` (HWIO kernel) → a torch ``Conv2d`` (OIHW weight)."""
+    return {f"{prefix}.weight": _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))),
+            f"{prefix}.bias": _t(p["bias"])}
 
 
 def _gru(p: Mapping) -> Dict[str, torch.Tensor]:
@@ -133,3 +139,9 @@ def q_nets_state_dict(flax_params: Sequence[Mapping],
     ``nn.ModuleList`` of them; ``net`` converts one (``ContinuousQNet``
     unless given, e.g. ``dueling_q_state_dict``)."""
     return {f"{i}.{k}": v for i, p in enumerate(flax_params) for k, v in net(p).items()}
+
+
+def plain_cnn_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``PlainCNN`` parameters: ``conv`` and ``fc``."""
+    p = _params(flax_params)
+    return {**_conv("conv", p["conv"]), **_dense("fc", p["fc"])}

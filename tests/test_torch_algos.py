@@ -424,5 +424,8 @@ def test_linear_lr_decay_matches_optax(updates_per_iteration, episodes):
 
 
 def test_weight_decay_still_refused():
-    with pytest.raises(NotImplementedError, match="weight decay.*ROADMAP"):
-        tcommon.make_optimizer([torch.nn.Parameter(torch.zeros(2))], LR, weight_decay=1e-4)
+    """Weight decay, refused before, builds AdamW (its parity with
+    ``optax.adamw``: tests/test_torch_options.py)."""
+    opt = tcommon.make_optimizer([torch.nn.Parameter(torch.zeros(2))], LR, weight_decay=1e-4)
+    assert isinstance(opt.adam, torch.optim.AdamW)
+    assert opt.adam.param_groups[0]["weight_decay"] == 1e-4

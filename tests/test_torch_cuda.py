@@ -402,3 +402,58 @@ def test_slice9_steps_on_the_card_match_the_cpu(device, env_name, env_args):
         ends += int(c.final.dones.all(dim=1).sum())
         states = [c.state, type(c.state)(*(x.to(device) for x in c.state))]
     assert ends >= X
+
+
+# ------------------------------------------- data parallelism on one card
+# the order of float sums (a rank sums its rows, the all-reduce adds the
+# ranks' sums), carried through two iterations of Adam steps
+DP_RTOL, DP_ATOL = 1e-5, 1e-6
+
+
+def _dp_iterations(mesh, device):
+    """Two HAPPO HalfCheetah-2x3 iterations (64 envs, 2 minibatches) on
+    this rank's env columns (all of them without a mesh); the replicated
+    tensors after each, on the CPU, and the GAE launches."""
+    from harl_tpu_torch.runners import common
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, env_args = get_defaults_yaml_args("happo", "mamujoco_jax")
+    algo_args["train"].update(n_rollout_threads=64, episode_length=16)
+    algo_args["model"].update(hidden_sizes=[32, 32])
+    algo_args["algo"].update(ppo_epoch=2, critic_epoch=2, actor_num_mini_batch=2,
+                             critic_num_mini_batch=2)
+    env_args.update(agent_conf="2x3", episode_limit=10)
+    runner = OnPolicyRunner({"algo": "happo", "env": "mamujoco_jax"}, algo_args, env_args,
+                            device=device)
+    runner.use_mesh(mesh)
+    state = runner.init_state(0)
+    K.gae.launches = 0
+    out = []
+    for _ in range(2):
+        state, _ = runner.train_iteration(state)
+        tensors = common.replica_tensors(state)
+        out.append(dict(tensors=[t.detach().cpu().clone() for t in tensors],
+                        launches=K.gae.launches,
+                        mismatch=runner.mesh.replica_mismatch(tensors)))
+    return out
+
+
+def _dp_rank(mesh):
+    return _dp_iterations(mesh, mesh.device)
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_rank(device):
+    """Two ranks on ``cuda:0`` over gloo (CUDA tensors): the replicas stay
+    bitwise equal, GAE is launched once an iteration on each rank, and
+    both equal the one-rank run of this process."""
+    from harl_tpu_torch.parallel.launch import spawn_ranks
+
+    ranks = spawn_ranks(_dp_rank, 2, device="cuda:0", backend="gloo", timeout_s=300)
+    ref = _dp_iterations(None, device)
+    for rank in ranks:
+        for i, (got, want) in enumerate(zip(rank, ref)):
+            assert got["mismatch"] == (0, 0.0)
+            assert got["launches"] == want["launches"] == i + 1
+            for a, b in zip(got["tensors"], want["tensors"]):
+                torch.testing.assert_close(a, b, rtol=DP_RTOL, atol=DP_ATOL)

@@ -161,9 +161,13 @@ def test_unported_heads_raise():
     # MultiDiscrete heads, refused before, build (tests/test_torch_multidiscrete_cnn.py)
     head = StochasticPolicy(OBS_DIM, MultiDiscrete(), HIDDEN, device="cpu").act
     assert [getattr(head, f"head{i}").out_features for i in range(2)] == [3, 4]
-    with pytest.raises(NotImplementedError):
+    # the non-orthogonal inits, refused before, build (tests/test_torch_options.py);
+    # an unknown one raises, as in the JAX package
+    StochasticPolicy(OBS_DIM, spaces.Discrete(5), HIDDEN, device="cpu",
+                     initialization_method="xavier_uniform_", use_recurrent_policy=True)
+    with pytest.raises(ValueError, match="Unknown initialization method"):
         StochasticPolicy(OBS_DIM, spaces.Discrete(5), HIDDEN, device="cpu",
-                         initialization_method="xavier_uniform_", use_recurrent_policy=True)
+                         initialization_method="glorot_")
 
 
 @pytest.mark.parametrize("section", ["train", "model", "algo"])

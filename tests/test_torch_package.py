@@ -10,6 +10,7 @@ import torch
 
 from harl_tpu_torch.algos.off_policy_actors import HASACActor
 from harl_tpu_torch.ops import gae_kernels
+from harl_tpu_torch.parallel.mesh import Mesh
 from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.runners.on_policy import OnPolicyRunner
 from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
@@ -59,7 +60,7 @@ def test_imports_no_jax_and_no_harl_tpu():
                  "utils.checkpoint", "utils.profiling", "utils.config_tools", "algos.hatrpo",
                  "envs.mamujoco_jax.ant", "envs.smaclite.smaclite", "buffers.off_policy",
                  "envs.mamujoco_jax.humanoid", "envs.dexhands_jax.handover",
-                 "envs.dexhands_jax.manip"):
+                 "envs.dexhands_jax.manip", "parallel.mesh", "parallel.launch"):
         assert f"harl_tpu_torch.{name}" in names, names
     assert len(names) >= 20
 
@@ -157,14 +158,14 @@ def _one_iteration(args, algo_args, env_args, n_agents):
 
 
 def test_unported_options_raise():
-    """What is still refused raises; share_param, HATRPO and linear lr decay,
-    refused before, run."""
+    """What is still refused raises; share_param, HATRPO, linear lr decay,
+    the non-orthogonal inits and weight decay, refused before, run."""
     algo_args, env_args = _small_configs()
-    for section, key, value in [("model", "initialization_method", "xavier_uniform_"),
-                                ("model", "weight_decay", 1e-4)]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            OnPolicyRunner(ARGS, _with(algo_args, section, key, value), env_args,
-                           device="cpu").init_state(0)
+    _one_iteration(ARGS, _with(algo_args, "model", "initialization_method", "xavier_uniform_"),
+                   env_args, 6)
+    runner, state = _one_iteration(ARGS, _with(algo_args, "model", "weight_decay", 1e-4),
+                                   env_args, 6)
+    assert isinstance(state.actors[0].opt.adam, torch.optim.AdamW)
     runner, state = _one_iteration(ARGS, _with(algo_args, "algo", "share_param", True),
                                    env_args, 6)
     assert len(state.actors) == 1 and runner.actors[0] is runner.actors[5]
@@ -176,8 +177,8 @@ def test_unported_options_raise():
     trpo_args["model"].update(hidden_sizes=[8, 8])
     trpo_args["algo"].update(critic_epoch=1)
     _one_iteration({"algo": "hatrpo", "env": "mamujoco_jax"}, trpo_args, env_args, 6)
-    # the planar env has no FP state
-    with pytest.raises(NotImplementedError, match="FP"):
+    # the planar env has no FP state, which the JAX runner cannot run either
+    with pytest.raises(ValueError, match="FP"):
         OnPolicyRunner(ARGS, algo_args, dict(env_args, state_type="FP"), device="cpu")
 
 
@@ -252,10 +253,12 @@ def test_off_policy_unported_options_raise():
     hasac = {"algo": "hasac", "env": "mamujoco_jax"}
     shared = {k: dict(v) if isinstance(v, dict) else v for k, v in algo_args.items()}
     shared["algo"]["share_param"] = True
-    with pytest.raises(NotImplementedError, match="share_param.*ROADMAP"):
-        OffPolicyRunner(hasac, shared, env_args, device="cpu")
-    # the planar env has no FP state
-    with pytest.raises(NotImplementedError, match="FP.*ROADMAP"):
+    # share_param, refused before, builds one actor state (its parity:
+    # tests/test_torch_off_policy_share_param.py)
+    runner = OffPolicyRunner(hasac, shared, env_args, device="cpu")
+    assert runner.actors[0] is runner.actors[1] and len(runner.init_state(0).actors) == 1
+    # the planar env has no FP state, which the JAX runner cannot run either
+    with pytest.raises(ValueError, match="FP"):
         OffPolicyRunner(hasac, algo_args, dict(env_args, state_type="FP"), device="cpu")
     # MultiDiscrete HASAC, refused before, builds (its parity:
     # tests/test_torch_runner_soccer_aircombat.py)
@@ -288,15 +291,21 @@ def test_off_policy_unported_options_raise():
     with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
         OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,
                         device="cpu")
-    # the training loop and evaluation, refused before, run; meshes do not
+    # what stays refused: the host envs, and the real games behind them
+    for env, extra in (("smac", {"map_name": "3m"}), ("dexhands", {})):
+        with pytest.raises(NotImplementedError, match="native.*ROADMAP"):
+            OffPolicyRunner({"algo": "hasac", "env": env}, algo_args,
+                            dict(extra, backend="native"), device="cpu")
+    # the training loop and evaluation, refused before, run; so do meshes
+    # (tests/test_torch_parallel.py), whose ranks must divide the env batch
     algo_args["train"].update(num_env_steps=12, eval_interval=2)
     algo_args["eval"].update(use_eval=True, n_eval_rollout_threads=2, eval_episodes=2)
     runner = OffPolicyRunner(hasac, algo_args, env_args, device="cpu")
     state, history = runner.run(seed=0)
     assert len(history) == 2 and math.isfinite(history[-1]["eval_return"])
     assert math.isfinite(runner.evaluate(state, 2, 2)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run(seed=0, mesh=object())
+    with pytest.raises(ValueError, match="does not split over 2 ranks"):
+        runner.run(seed=0, mesh=Mesh(0, 2, "cpu"))
 
 
 @pytest.mark.parametrize("algo", ["hasac", "hatd3"])

@@ -167,9 +167,10 @@ def test_main_raises_without_cuda_unless_asked_for_the_cpu(tmp_path):
         train.main(argv)
     with pytest.raises(ValueError, match="platform"):
         train.main(argv + ["--platform", "tpu"])
-    for key in ("n_devices", "num_processes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(argv + ["--platform", "cpu", f"--{key}", "2"])
+    # more than one device or process, refused before, trains
+    # (tests/test_torch_parallel.py); several processes need a coordinator
+    with pytest.raises(ValueError, match="coordinator"):
+        train.main(argv + ["--platform", "cpu", "--num_processes", "2"])
     assert not os.listdir(tmp_path)   # refused before any run directory was made
 
 
