@@ -6,7 +6,7 @@
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
 run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
+20, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
 session leaves the process slower, so every timed run comes before the
 first one.
 
@@ -42,8 +42,8 @@ first one.
    HalfCheetah-6x1 at the bench's widths (bench.py:289-325: 256 envs,
    ``train_interval`` 50, batch 1000, buffer 200,000, ``n_step`` 5, MLP
    [256, 256]) through ``OffPolicyRunner``: the warmup, one collect+train
-   block, 3 timed blocks (env-steps/s), one more block split into collect
-   and train; last, 3 more timed blocks, the device ops of one env step
+   block, 2 timed blocks (env-steps/s), one more block split into collect
+   and train; last, 2 more timed blocks, the device ops of one env step
    with its actors and of one update, and one more block under
    torch.profiler; the launch counts are zeroed before each part and read
    after it (this path launches no kernel of the port);
@@ -52,7 +52,7 @@ first one.
    and every parameter after training;
 12. drive the CLI, ``harl_tpu_torch.train.main``, on the repo's tuned HATRPO
    config for SMACLite 5m_vs_6m at its full widths (20 envs x 160 steps, FP,
-   GRU actors and critic, MLP [64, 64, 64]): 3 iterations with evaluation (10
+   GRU actors and critic, MLP [64, 64, 64]): 2 iterations with evaluation (10
    episodes) and a checkpoint, into a temporary directory outside the repo;
    the GAE kernel launched once an iteration; then a second ``main`` that
    resumes from that checkpoint (its restored parameters, and those of a
@@ -157,7 +157,22 @@ first one.
    iterations, ValueNorm's ``per_element_update`` and an off-policy
    ``share_param`` HATD3 block on the card against the CPU; (e)
    env-steps/s of (a), (b) and the one-rank runs, and the all-reduces and
-   their milliseconds (CUDA events) a step.
+   their milliseconds (CUDA events) a step;
+20. the host-env path (``envs/host.py``) on a stand-in host env in NumPy
+   with HalfCheetah-6x1's spaces (``StandInCheetah``: the card's machine
+   has neither gymnasium nor mujoco, so its rates are not MuJoCo's): (a)
+   HAPPO through ``OnPolicyRunner.run`` at happo.yaml's widths (20 envs x
+   200 steps, MLP [128, 128], 2 iterations), with env-steps/s of the
+   second, ``HostVecEnv.step``'s µs a step against the rest of a
+   collection step, the update's seconds, the GAE kernel once an
+   iteration, truncations and terminations in every iteration, then the
+   kernel held against its plain version on one more collection's inputs
+   (T=200, b=20); (b) HATD3 through ``OffPolicyRunner.run`` at hatd3.yaml's
+   widths (20 envs, warmup 10,000 steps, batch 1000, buffer 1,000,000
+   rows, MLP [256, 256]), 2 blocks, with env-steps/s, the buffer's GiB and
+   every inserted row counted; (c) a small HAPPO GRU iteration on the
+   Discrete stand-in and a small HATD3 block on the card against the CPU
+   (actions, availability, masks and bad masks equal).
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -177,6 +192,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # Kernel against plain version: both are float32; nvcc contracts a*b+c into
@@ -207,7 +223,7 @@ TIMED_SHAPES = (("main", MAIN["episode_length"], (MAIN["n_envs"], 1)),
 # the JAX package's off-policy bench configuration (bench.py:289-325)
 HASAC = dict(n_envs=256, episode_limit=1000, warmup_steps=256 * 4, train_interval=50,
              n_step=5, batch_size=1000, buffer_size=200_000, hidden=[256, 256],
-             timed_blocks=3)
+             timed_blocks=2)
 # Zeroing this many bytes between launches evicts the 50 MB L2.
 FLUSH_BYTES = 256 * 2 ** 20
 
@@ -1062,7 +1078,7 @@ def hatrpo_phase_times(update_spy, timer) -> str:
 def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) -> tuple:
     """Phase 12: the tuned HATRPO 5m_vs_6m config through
     ``harl_tpu_torch.train.main`` at its full widths (20 envs x 160 steps,
-    FP, GRU, MLP [64, 64, 64]): 3 iterations with evaluation and a
+    FP, GRU, MLP [64, 64, 64]): 2 iterations with evaluation and a
     checkpoint, a resume of one more iteration from that checkpoint, and a
     split iteration in which the GAE kernel is held against its plain
     version on the path's own inputs (T=160, b=100) and timed; HATRPO's
@@ -1080,24 +1096,24 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
     zero_launches()
     t0 = time.perf_counter()
     with Spy(OnPolicyRunner, "train_iteration") as its:
-        run_dir = train.main(["--load_config", CLI_HATRPO, "--num_env_steps", str(3 * T * n),
+        run_dir = train.main(["--load_config", CLI_HATRPO, "--num_env_steps", str(2 * T * n),
                               "--eval_episodes", "10", *extra, "--log_dir", log_dir])
     wall = time.perf_counter() - t0
     launches = read_launches()
-    if launches["gae"] < 3 or launches["discounted_returns"] != 0:
+    if launches["gae"] < 2 or launches["discounted_returns"] != 0:
         raise AssertionError(f"cli hatrpo: launches {launches} (gae once an iteration)")
     recs = read_run(run_dir, 5)
     evals = [r for r in recs if "eval_return" in r]
     if not evals or not math.isfinite(evals[-1]["eval_return"]) or \
             "eval_win_rate" not in evals[-1]:
         raise AssertionError(f"cli hatrpo: eval records {evals}")
-    if not os.path.isdir(os.path.join(run_dir, "models", f"ckpt_{3 * T * n}")):
-        raise AssertionError(f"cli hatrpo: no ckpt_{3 * T * n}")
+    if not os.path.isdir(os.path.join(run_dir, "models", f"ckpt_{2 * T * n}")):
+        raise AssertionError(f"cli hatrpo: no ckpt_{2 * T * n}")
     times = [c[0] for c in its.calls]
     print(f"cli hatrpo smaclite: HATRPO 5m_vs_6m FP GRU, tuned config ({n} envs x {T} steps, "
           f"MLP {cfg_model_widths(its)}) through train.main: {len(times)} iterations of "
-          f"{', '.join(f'{t:.4f}' for t in times)} s; {2 * n * T / sum(times[1:]):.1f} env-steps/s "
-          f"over iterations 2-3; main {wall:.2f} s with eval (return "
+          f"{', '.join(f'{t:.4f}' for t in times)} s; {n * T / sum(times[1:]):.1f} env-steps/s "
+          f"over iteration 2; main {wall:.2f} s with eval (return "
           f"{evals[-1]['eval_return']:.4f}, win rate {evals[-1]['eval_win_rate']:.4f}) and "
           f"checkpoint; gae launched {launches['gae']} times on {card}", flush=True)
 
@@ -1160,15 +1176,16 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
 
 
 def gae_in_situ(label: str, runner, state, shape: tuple, floor: dict, card: str) -> dict:
-    """One more rollout of an on-policy ``runner`` from ``state``, then the
-    GAE kernel on that rollout's own returns inputs (of ``shape``, T first)
-    held against its plain version and timed warm; its launches here are not
-    counted. Returns the kernel's numbers on those inputs."""
+    """One more rollout (a host runner's: a collection) of an on-policy
+    ``runner`` from ``state``, then the GAE kernel on that rollout's own
+    returns inputs (of ``shape``, T first) held against its plain version
+    and timed warm; its launches here are not counted. Returns the kernel's
+    numbers on those inputs."""
     from harl_tpu_torch.ops import gae_kernels as K
 
     first_masks0 = state.carry.masks[:, 0]
     t0 = time.perf_counter()
-    data = runner.rollout(state)
+    data = runner.collect_host(state) if runner.host_mode else runner.rollout(state)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
     c = state.carry
@@ -2605,6 +2622,263 @@ def check_dp_options_against_cpu(devices=("cpu", "cuda")) -> None:
                                  label="share_param hatd3 mpe simple_spread")
 
 
+# ----------------------------------------------- the host-env path (phase 20)
+class StandInCheetah:
+    """A stand-in host env with HalfCheetah-6x1's spaces, in NumPy only: the
+    card's machine has neither gymnasium nor mujoco, so MAMuJoCo cannot run
+    there, and its rates are not MuJoCo's. Six agents of one ``Box(1)``
+    action (``discrete``: ``Discrete(3)``, u = a − 1, one action of each
+    agent made unavailable at random every step); an agent's obs is the 17
+    state entries and a one-hot of 6, the shared obs the state. The state
+    moves linearly, s' = A·s + B·u + 0.05·ε, with A and B fixed random
+    matrices and ε from the env's own ``default_rng(seed)``; s[0] is a random
+    walk. The reward is the forward velocity s[8] − 0.1·|u|²; an episode
+    truncates at ``episode_limit`` (``bad_transition``) and terminates where
+    |s[0]| leaves ``band``."""
+
+    is_jax = False
+    n_agents, dim = 6, 17
+    _mats = np.random.default_rng(2024)
+    A = 0.85 * np.eye(17) + 0.1 * _mats.standard_normal((17, 17)) / np.sqrt(17)
+    A[0] = np.eye(17)[0]
+    B = 0.1 * _mats.standard_normal((17, 6))
+    B[0] = 0.01
+
+    def __init__(self, discrete: bool = False, episode_limit: int = 150, band: float = 1.5):
+        from harl_tpu_torch.utils import spaces
+
+        self.discrete, self.episode_limit, self.band = discrete, episode_limit, band
+        self.rng = np.random.default_rng(0)
+        self.observation_space = [spaces.Box.create(-10.0, 10.0, self.dim + 6)] * 6
+        self.share_observation_space = [spaces.Box.create(-10.0, 10.0, self.dim)] * 6
+        self.action_space = [spaces.Discrete(3) if discrete
+                             else spaces.Box.create(-1.0, 1.0, 1)] * 6
+
+    def seed(self, seed: int) -> None:
+        self.rng = np.random.default_rng(seed)
+
+    def _out(self):
+        obs = np.concatenate([np.tile(self.s, (6, 1)), np.eye(6)], axis=1).astype(np.float32)
+        avail = None
+        if self.discrete:
+            avail = np.ones((6, 3), np.float32)
+            avail[np.arange(6), self.rng.integers(0, 3, 6)] = 0.0
+        return obs, self.s.astype(np.float32), avail
+
+    def reset(self):
+        self.t = 0
+        self.s = 0.1 * self.rng.standard_normal(self.dim)
+        return self._out()
+
+    def step(self, actions):
+        a = np.asarray(actions, np.float64).reshape(6, -1)[:, 0]
+        u = a - 1.0 if self.discrete else np.clip(a, -1.0, 1.0)
+        eps = self.rng.standard_normal(self.dim)
+        self.s = self.A @ self.s + self.B @ u + 0.05 * eps
+        self.s[0] += 0.03 * eps[0]
+        self.t += 1
+        term = bool(abs(self.s[0]) > self.band)
+        trunc = self.t >= self.episode_limit
+        reward = self.s[8] - 0.1 * float(u @ u)
+        done = term or trunc
+        infos = [{"bad_transition": trunc and not term} for _ in range(6)]
+        obs, share, avail = self._out()
+        return (obs, share, np.full((6, 1), reward, np.float32), np.full(6, done), infos,
+                avail)
+
+
+def standin_envs(n_envs: int, **kwargs):
+    """``n_envs`` stand-ins in a ``HostVecEnv`` (seeds 1 + 1000·i)."""
+    from harl_tpu_torch.envs.host import HostVecEnv
+
+    return HostVecEnv([functools.partial(StandInCheetah, **kwargs)] * n_envs)
+
+
+def host_configs(algo: str, shrink: dict = None) -> dict:
+    """The YAML defaults of ``algo`` (happo.yaml, hatd3.yaml) without
+    evaluation (the stand-in is no registered env to evaluate on), with
+    ``shrink``'s keys set where the sections have them."""
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args, update_args
+
+    algo_args, _ = get_defaults_yaml_args(algo, "mamujoco")
+    algo_args["eval"]["use_eval"] = False
+    update_args(shrink or {}, algo_args)
+    return algo_args
+
+
+def mask_kinds(data) -> tuple:
+    """(truncations, terminations) among a rollout's episode ends."""
+    ended = 1.0 - data["next_masks"]
+    truncated = 1.0 - data["next_bad_masks"]
+    return int(truncated.sum()), int((ended - truncated).sum())
+
+
+def drive_host_paths(card: str, floor: dict, device: str = "cuda", shrink: dict = None) -> tuple:
+    """Phase 20 (a) and (b) on the stand-in (``StandInCheetah``). (a) HAPPO
+    through ``OnPolicyRunner.run`` at happo.yaml's widths: 20 envs x 200
+    steps, MLP [128, 128], the EP V critic with ValueNorm, 2 iterations;
+    env-steps/s of the second, the µs a step of ``HostVecEnv.step`` against
+    the rest of a collection step (the device policy and critic with their
+    copies), the update's seconds; the GAE kernel once an iteration, both
+    mask kinds in every iteration; then one more collection on whose
+    returns inputs (T=200, b=20) the kernel is held against its plain
+    version (``gae_in_situ``). (b) HATD3 through ``OffPolicyRunner.run`` at
+    hatd3.yaml's widths (20 envs, warmup 10,000 steps, ``train_interval``
+    50, batch 1000, buffer 1,000,000 rows, MLP [256, 256]), 2 blocks:
+    env-steps/s, the buffer's GiB, every inserted row counted. Returns
+    (launches by path, the in-situ GAE numbers)."""
+    from harl_tpu_torch.envs.host import HostVecEnv
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+    by_path = {}
+    algo_args = host_configs("happo", shrink)
+    tr = algo_args["train"]
+    B, T, iterations = tr["n_rollout_threads"], tr["episode_length"], 2
+    tr["num_env_steps"] = iterations * T * B
+    runner = OnPolicyRunner({"algo": "happo", "env": "standin"}, algo_args, {}, device=device,
+                            env=standin_envs(B))
+    zero_launches()
+    t0 = time.perf_counter()
+    with Spy(OnPolicyRunner, "train_iteration") as its, \
+            Spy(OnPolicyRunner, "collect_host") as collects, \
+            Spy(OnPolicyRunner, "update_phase", keep=lambda out: None) as updates, \
+            Spy(HostVecEnv, "step", sync=False, keep=lambda out: None) as env_steps:
+        state, history = runner.run(seed=1)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != {"gae": iterations, "discounted_returns": 0} or len(its.calls) != iterations:
+        raise AssertionError(f"host happo: launches {launches}, {len(its.calls)} iterations")
+    for i, (_, _, args, _) in enumerate(updates.calls):
+        kinds = mask_kinds(args[1])
+        if min(kinds) < 1:
+            raise AssertionError(f"host happo iteration {i + 1}: (truncations, terminations) "
+                                 f"{kinds}; both kinds are required")
+    if not all(math.isfinite(r["value_loss"]) for r in history):
+        raise AssertionError(f"host happo: records {history}")
+    env_us = sum(c[0] for c in env_steps.calls[T:2 * T]) / T * 1e6
+    collect_us = collects.calls[1][0] / T * 1e6
+    print(f"host_happo: stand-in HalfCheetah-6x1 (NumPy, not MuJoCo) on HostVecEnv, {B} envs "
+          f"x {T} steps, MLP {list(runner.hidden_sizes)}, through OnPolicyRunner.run in "
+          f"{wall:.2f} s; iterations of {', '.join(f'{c[0]:.4f}' for c in its.calls)} s, "
+          f"{T * B / its.calls[1][0]:.1f} env-steps/s in the second; a collection step "
+          f"{collect_us:.1f} us: HostVecEnv.step {env_us:.1f} us, the device policy and critic "
+          f"with their copies {collect_us - env_us:.1f} us; update "
+          f"{', '.join(f'{c[0]:.4f}' for c in updates.calls)} s; (truncations, terminations) "
+          f"by iteration {[mask_kinds(c[2][1]) for c in updates.calls]}; launches {launches} "
+          f"on {card}", flush=True)
+    by_path["host_happo"] = launches
+    in_situ = gae_in_situ("host_happo", runner, state, (T, B, 1), floor, card)
+
+    algo_args = host_configs("hatd3", shrink)
+    tr, blocks = algo_args["train"], 2
+    B, interval = tr["n_rollout_threads"], tr["train_interval"]
+    tr["num_env_steps"] = blocks * interval * B
+    runner = OffPolicyRunner({"algo": "hatd3", "env": "standin"}, algo_args, {}, device=device,
+                             env=standin_envs(B))
+    zero_launches()
+    t0 = time.perf_counter()
+    with Spy(OffPolicyRunner, "warmup_block", keep=lambda out: None) as warm, \
+            Spy(OffPolicyRunner, "collect_block") as collects, \
+            Spy(OffPolicyRunner, "train_block") as trains:
+        state, history = runner.run(seed=1)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    buf = state.buffer
+    inserted = (tr["warmup_steps"] // B + blocks * interval) * B
+    if launches != {"gae": 0, "discounted_returns": 0} or len(trains.calls) != blocks:
+        raise AssertionError(f"host hatd3: launches {launches}, {len(trains.calls)} blocks")
+    if buf.cur_size != min(inserted, buf.buffer_size):
+        raise AssertionError(f"host hatd3: {buf.cur_size} rows in the buffer, {inserted} "
+                             "inserted")
+    rows = buf.cur_size
+    if not (torch.isfinite(buf.obs[0][:rows]).all() and torch.isfinite(buf.rewards[:rows]).all()
+            and math.isfinite(history[-1]["critic_loss"])):
+        raise AssertionError("host hatd3: non-finite rows or losses")
+    nbytes = sum(x.numel() * x.element_size() for v in vars(buf).values()
+                 for x in (v if isinstance(v, list) else [v]) if isinstance(x, torch.Tensor))
+    times = [c[0] + t[0] for c, t in zip(collects.calls, trains.calls)]
+    episodes = int(sum(float(c[3][1]["episode_count"]) for c in collects.calls))
+    print(f"host_hatd3: stand-in HalfCheetah-6x1 on HostVecEnv, {B} envs, warmup "
+          f"{tr['warmup_steps']} steps ({warm.calls[0][0]:.4f} s), blocks of {interval} steps, "
+          f"batch {runner.batch_size}, MLP {list(runner.actors[0].hidden_sizes)}, through "
+          f"OffPolicyRunner.run in {wall:.2f} s; blocks of "
+          f"{', '.join(f'{t:.4f}' for t in times)} s (collect "
+          f"{', '.join(f'{c[0]:.4f}' for c in collects.calls)} s), "
+          f"{blocks * interval * B / sum(times):.1f} env-steps/s over both; {rows} rows read "
+          f"back of {inserted} inserted, replay buffer of {buf.buffer_size} rows "
+          f"{nbytes / 2 ** 30:.3f} GiB on the card; {episodes} episodes ended in the blocks; "
+          f"launches {launches} on {card}", flush=True)
+    by_path["host_hatd3"] = launches
+    return by_path, in_situ
+
+
+def check_host_against_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 20 (c): a small HAPPO iteration with GRU actors and critic on
+    the Discrete stand-in (8 envs x 40 steps, episodes truncated at 15 steps
+    or ended past |s[0]| > 0.3), and a small HATD3 warmup, block and train on
+    the Box one, on the card and on the CPU from the same seeds: actions,
+    availability, masks and bad masks equal, floats at rtol 1e-3, atol
+    1e-4."""
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    small = dict(episode_limit=15, band=0.3)
+    runs = []
+    for dev in devices:
+        algo_args = host_configs("happo", {"n_rollout_threads": 8, "episode_length": 40,
+                                           "hidden_sizes": [16, 16], "ppo_epoch": 2,
+                                           "critic_epoch": 2, "use_recurrent_policy": True,
+                                           "data_chunk_length": 10})
+        noise = GeneratorNoise(torch.Generator().manual_seed(8), dev)
+        runner = OnPolicyRunner({"algo": "happo", "env": "standin"}, algo_args, {}, device=dev,
+                                noise=noise, env=standin_envs(8, discrete=True, **small))
+        state = runner.init_state(0)
+        if runs:   # the card's runner starts from the CPU runner's parameters
+            cpu_state = runs[0][0]
+            for a, b in zip(state.actors + [state.critic], cpu_state.actors + [cpu_state.critic]):
+                a.net.load_state_dict(b.net.state_dict())
+        runs.append((state, runner))
+    outs = []
+    for state, runner in runs:
+        with Spy(OnPolicyRunner, "update_phase", sync=False) as updates:
+            outs.append((*runner.train_iteration(state), updates.calls[0][2][1]))
+    torch.cuda.synchronize()
+    (s_cpu, m_cpu, d_cpu), (s_gpu, m_gpu, d_gpu) = outs
+    close = lambda a, b: torch.testing.assert_close(
+        torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu(), rtol=E2E_RTOL, atol=E2E_ATOL)
+    for k in ("avail", "masks", "active_masks", "next_masks", "next_bad_masks", "emitted_cnt"):
+        if not torch.equal(d_gpu[k].cpu(), d_cpu[k]):
+            raise AssertionError(f"host happo GRU: {k} differ on the card")
+    for a, b in zip(d_gpu["actions"], d_cpu["actions"]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("host happo GRU: actions differ on the card")
+    for k in ("obs", "value", "reward", "emitted_ret", "critic_rnn"):
+        close(d_gpu[k], d_cpu[k])
+    kinds = mask_kinds(d_cpu)
+    if min(kinds) < 1:
+        raise AssertionError(f"host happo GRU: (truncations, terminations) {kinds}")
+    for k in ("value_loss", "critic_grad_norm", "mean_step_reward", "episode_return_sum"):
+        close(m_gpu[k], m_cpu[k])
+    close(m_gpu["actor_stats"], m_cpu["actor_stats"])
+    for a, b in zip(s_gpu.actors + [s_gpu.critic], s_cpu.actors + [s_cpu.critic]):
+        for va, vb in zip(a.net.state_dict().values(), b.net.state_dict().values()):
+            close(va, vb)
+    log(f"small host HAPPO GRU iteration on the Discrete stand-in: card == CPU (actions, "
+        f"availability, masks and bad masks equal; (truncations, terminations) {kinds}; floats "
+        f"at rtol {E2E_RTOL}, atol {E2E_ATOL})")
+
+    def make(algo, dev, noise):
+        algo_args = host_configs(algo, {"n_rollout_threads": 16, "warmup_steps": 32,
+                                        "train_interval": 4, "batch_size": 64,
+                                        "buffer_size": 1000, "hidden_sizes": [16, 16]})
+        return OffPolicyRunner({"algo": algo, "env": "standin"}, algo_args, {}, device=dev,
+                               noise=noise, env=standin_envs(16, episode_limit=5, band=0.3))
+
+    check_off_policy_against_cpu("hatd3", devices, make, label="host hatd3 stand-in")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -2662,6 +2936,8 @@ def main() -> int:
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     check_dp_options_against_cpu()
+    host_paths, host_gae = drive_host_paths(card, floor)
+    check_host_against_cpu()
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -2671,7 +2947,7 @@ def main() -> int:
     slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
-               **slice9, **dp_paths}
+               **slice9, **dp_paths, **host_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -2684,6 +2960,7 @@ def main() -> int:
                          shadowhandover_in_situ=handover_gae,
                          soccer_in_situ=slice9_gae["soccer_happo"],
                          aircombat_in_situ=slice9_gae["aircombat_happo"],
+                         host_in_situ=host_gae,
                          **{f"dp_{k}_in_situ": v for k, v in dp_gae.items()})
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,

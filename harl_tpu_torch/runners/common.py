@@ -1,24 +1,26 @@
 """What both runners share: padded action stacking, the deterministic
 evaluation loop over auto-reset envs, the seeds of the generators that
 evaluation and rendering draw from (so they never move the training
-generator), and how a runner takes its rank's env columns under data
-parallelism."""
+generator), how a runner takes its rank's env columns under data
+parallelism, and a host env's arrays on the device."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.envs.core import TimeStep, VecEnv
 from harl_tpu_torch.parallel.mesh import LOCAL, ShardedNoise, tensors_of
 from harl_tpu_torch.utils import checkpoint
 from harl_tpu_torch.utils.noise import GeneratorNoise
 
 # salts of the evaluation and render generators: the constants the JAX
-# runners fold into their keys (on_policy.py:801, 949; off_policy.py:730)
+# runners fold into their keys (on_policy.py:771, 801, 949; off_policy.py:730)
 ON_POLICY_EVAL_SALT = 7777
 OFF_POLICY_EVAL_SALT = 31337
 RENDER_SALT = 4242
+HOST_EVAL_SALT = 99
 
 
 def attach_mesh(runner, mesh) -> None:
@@ -28,16 +30,22 @@ def attach_mesh(runner, mesh) -> None:
     source and ``env_cols``, the global index of each local env (host
     int64). ``ValueError`` where the ranks do not divide
     ``n_rollout_threads``, as a ``NamedSharding`` of the env axis fails in
-    JAX."""
+    JAX, and for a host env (``runner.host_vec``, stepping every env of the
+    run) under more than one rank: the JAX runners ignore the mesh there,
+    which would leave unsynchronised replicas."""
     B = runner.n_rollout_threads
-    mesh = runner.mesh = mesh or LOCAL
+    mesh = mesh or LOCAL
+    if runner.host_mode and mesh.world > 1:
+        raise ValueError(f"host env {runner.args['env']!r}: data parallelism over "
+                         f"{mesh.world} ranks needs a tensor env")
     if B % mesh.world:
         raise ValueError(f"n_rollout_threads {B} does not split over {mesh.world} ranks")
+    runner.mesh = mesh
     runner.n_envs = B // mesh.world
     runner.noise = ShardedNoise(runner.base_noise, mesh, B)
     lo = mesh.row_range(B)[0]
     runner.env_cols = torch.arange(lo, lo + runner.n_envs)
-    runner.vec = VecEnv(runner.env, runner.n_envs)
+    runner.vec = runner.host_vec if runner.host_mode else VecEnv(runner.env, runner.n_envs)
 
 
 def replica_tensors(state, buffer: bool = True) -> List[torch.Tensor]:
@@ -47,6 +55,30 @@ def replica_tensors(state, buffer: bool = True) -> List[torch.Tensor]:
     payload = checkpoint.to_payload(state)
     return tensors_of({k: v for k, v in payload.items()
                        if k != "carry" and (buffer or k != "buffer")})
+
+
+def host_tensor(x, device: torch.device) -> Optional[torch.Tensor]:
+    """A host env's NumPy array on ``device`` as float32 (None stays None):
+    float64 state rounds as ``jnp.asarray`` rounds it."""
+    if x is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def host_state(share_obs):
+    """A host env's EP state (B, ds): agent 0's row where the env gives one
+    per agent (B, N, ds), as the real-game adapters do and the reference's
+    EP runners store it (``share_obs[:, 0]``). The JAX package's host path
+    keeps the agent axis there and fails (ROADMAP Queue C)."""
+    return share_obs[:, 0] if np.ndim(share_obs) == 3 else share_obs
+
+
+def host_timestep(obs, share_obs, avail, device: torch.device) -> TimeStep:
+    """A host env's (obs, share_obs, availability) on ``device``."""
+    return TimeStep(obs=host_tensor(obs, device),
+                    share_obs=host_tensor(host_state(share_obs), device),
+                    rewards=None, dones=None, bad_transition=None,
+                    available_actions=host_tensor(avail, device))
 
 
 def stack_actions(acts: List[torch.Tensor]) -> torch.Tensor:

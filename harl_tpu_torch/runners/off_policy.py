@@ -35,10 +35,22 @@ intervals, keeping the newest two (the state holds the replay buffer), and a
 resume from ``model_dir``.
 
 Ported: the EP and FP states, Box, Discrete and (HASAC) MultiDiscrete
-actions, pure-tensor envs, ``share_param`` (one actor state and optimizer
-for every agent: each agent's step in the update order moves it) and data
-parallelism (``run(mesh=…)``). Host envs raise ``NotImplementedError``
-naming their roadmap item.
+actions, pure-tensor envs, host envs (below), ``share_param`` (one actor
+state and optimizer for every agent: each agent's step in the update order
+moves it) and data parallelism (``run(mesh=…)``).
+
+Host envs (``is_jax`` false; off_policy.py:118-135, 809-1093): the envs
+step in NumPy on the host (``envs/host.py``; the native MuJoCo engine is
+used whole), the actors and the updates on the device. ``_host_steps``
+replaces the warmup and collect blocks: it steps the envs, keeps the rows
+on the host and inserts them step-major in one batch, so consecutive steps
+of an env stay ``n_rollout_threads`` rows apart as the n-step walk needs;
+under discrete actions the availability after a step is the host env's
+(post-reset where an env ended), as in the JAX package. ``host_eval`` runs
+the deterministic actors on fresh host envs seeded from 50000 until
+``eval_episodes`` episodes have ended. ``run`` enters the host loop before
+any ``model_dir`` restore, as the JAX runner does (ROADMAP Queue C). FP
+states and data parallelism over more than one rank refuse a host env.
 
 Data parallelism (``parallel/mesh.py``), the JAX package's layout: the
 replay buffer is replicated. Rank r of W steps its B/W env columns,
@@ -57,11 +69,13 @@ Randomness comes from one ``torch.Generator`` per runner on its device, and
 one on the host for the agent orders, both seeded by ``init_state(seed)``,
 through a noise source (``utils/noise.py``). Its draws, in order:
 
-  init_state      the env reset;
+  init_state      the env reset (none for a host env);
   warmup, a step  per agent ``uniform((B, d_i))`` (Box), ``randint((B, 1), n_i)``
                   (Discrete) or one ``randint((B,), n_ij)`` a sub-action
-                  (MultiDiscrete), then the env's reset draws;
-  collect, a step per agent its exploration draws, then the env's reset draws:
+                  (MultiDiscrete), then the env's reset draws (none for a host
+                  env);
+  collect, a step per agent its exploration draws, then the env's reset draws
+                  (none for a host env):
                   ``action_noise((B, d_i))`` (Box), HASAC's
                   ``gumbel_noise((B, n_i))`` (Discrete) or one
                   ``gumbel_noise((B, n_ij))`` a sub-head (MultiDiscrete), HAD3QN's
@@ -89,6 +103,7 @@ import math
 import time
 from typing import Any, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from harl_tpu_torch.algos.common import adam, soft_update
@@ -98,6 +113,7 @@ from harl_tpu_torch.algos.q_critics import (ContinuousQCritic, DiscreteQCritic, 
                                             SoftTwinContinuousQCritic, TwinContinuousQCritic)
 from harl_tpu_torch.buffers.off_policy import ReplayBuffer, ReplayBufferFP, Sample
 from harl_tpu_torch.envs import make_env
+from harl_tpu_torch.envs.host import vectorize
 from harl_tpu_torch.parallel.mesh import ShardedNoise, gather_tree, shard_tree
 from harl_tpu_torch.runners import common
 from harl_tpu_torch.utils import checkpoint
@@ -134,10 +150,12 @@ class OffPolicyState:
 class OffPolicyRunner:
     """``args``: {"algo", "env", …}; ``algo_args``: the YAML sections
     (train/model/algo); ``env_args``: env kwargs. ``device`` is CUDA unless
-    given; ``noise`` replaces the generator-backed noise source."""
+    given; ``noise`` replaces the generator-backed noise source; ``env``
+    replaces the env that ``args`` and ``env_args`` name (a host env's
+    further envs are still made from them)."""
 
     def __init__(self, args: dict, algo_args: dict, env_args: dict,
-                 device: DeviceLike = None, noise=None):
+                 device: DeviceLike = None, noise=None, env=None):
         self.device = resolve_device(device)
         self.args, self.algo_args, self.env_args = args, algo_args, env_args
         self.algo = args["algo"]
@@ -161,8 +179,11 @@ class OffPolicyRunner:
         self.alpha_fixed = al.get("alpha", 0.2)
         self.alpha_lr = al.get("alpha_lr", 3e-4)
         self.share_param = al.get("share_param", False)
-        env = make_env(args["env"], env_args, self.device)
+        env = make_env(args["env"], env_args, self.device) if env is None else env
         self.env = env
+        self.host_mode = not getattr(env, "is_jax", True)
+        if self.host_mode:
+            self.host_vec = vectorize(env, args["env"], env_args, self.n_rollout_threads)
         self.n_agents = env.n_agents
         self.act_spaces = env.action_space
         self.obs_dims = [sp.shape[0] for sp in env.observation_space]
@@ -226,7 +247,10 @@ class OffPolicyRunner:
         equal to them) and an empty replay buffer."""
         self.generator.manual_seed(seed)
         self.host_generator.manual_seed(seed)
-        env_state, ts = self.vec.reset(self.noise)
+        if self.host_mode:
+            env_state, ts = None, common.host_timestep(*self.vec.reset(), self.device)
+        else:
+            env_state, ts = self.vec.reset(self.noise)
         actors = []
         for actor in self.actors[:1 if self.share_param else self.n_agents]:
             st = actor.init(self.generator, self.mesh)
@@ -330,13 +354,18 @@ class OffPolicyRunner:
     @torch.no_grad()
     def warmup_block(self, state: OffPolicyState) -> OffPolicyState:
         """Fill the buffer with uniform random actions."""
-        for _ in range(max(self.warmup_steps // self.n_rollout_threads, 1)):
+        steps = max(self.warmup_steps // self.n_rollout_threads, 1)
+        if self.host_mode:
+            return self._host_steps(state, steps, warmup=True)[0]
+        for _ in range(steps):
             self._env_step_insert(state, *self._random_actions())
         return state
 
     @torch.no_grad()
     def collect_block(self, state: OffPolicyState):
         """``train_interval`` exploration steps with inserts."""
+        if self.host_mode:
+            return self._host_steps(state, self.train_interval)
         emitted, counts, rewards = [], [], []
         for _ in range(self.train_interval):
             e, c, r = self._env_step_insert(state, *self._env_actions(state.actors,
@@ -351,6 +380,72 @@ class OffPolicyRunner:
         sums[2] = sums[2] / self.mesh.world
         return state, dict(episode_return_sum=sums[0], episode_count=sums[1],
                            mean_step_reward=sums[2])
+
+    @torch.no_grad()
+    def _host_steps(self, state: OffPolicyState, n_steps: int, warmup: bool = False):
+        """``n_steps`` steps of the host envs with random (``warmup``) or
+        exploration actions, inserted step-major in one batch at the end
+        (off_policy.py:809-897). Returns (state, the collect metrics): the
+        episode returns summed in a Python float, as float32 tensors."""
+        B, N, dev = self.n_envs, self.n_agents, self.device
+        carry = state.carry
+        obs, share = carry.obs.cpu().numpy(), carry.share_obs.cpu().numpy()
+        avail = None if carry.avail is None else carry.avail.cpu().numpy()
+        ep_ret, deaths = carry.ep_ret.cpu().numpy(), carry.agent_deaths.cpu().numpy()
+        keep_avail = state.buffer.available_actions is not None and avail is not None
+        rows = {k: [] for k in ("share_obs", "rewards", "dones", "terms", "next_share_obs")}
+        per_agent = {k: [[] for _ in range(N)] for k in (
+            "obs", "next_obs", "actions", "valid_transitions", "available_actions",
+            "next_available_actions")}
+        emitted = counts = 0.0
+        for _ in range(n_steps):
+            stacked, _ = (self._random_actions() if warmup
+                          else self._env_actions(state.actors, carry))
+            stacked = stacked.cpu().numpy()
+            res = self.vec.step(stacked)
+            dones = res["dones"]
+            done_env = dones.all(axis=1)
+            bad = np.array([bool(info[0].get("bad_transition", False)) for info in res["infos"]])
+            valid = 1.0 - deaths
+            deaths = np.where(dones[..., None], 1.0, 0.0)
+            deaths[done_env] = 0.0
+            for k, v in (("share_obs", share), ("rewards", res["rewards"][:, 0]),
+                         ("dones", done_env[:, None]), ("terms", (done_env & ~bad)[:, None]),
+                         ("next_share_obs", common.host_state(res["final_share_obs"]))):
+                rows[k].append(v)
+            for i in range(N):
+                do, pa = self.obs_dims[i], per_agent
+                pa["obs"][i].append(obs[:, i, :do])
+                pa["next_obs"][i].append(res["final_obs"][:, i, :do])
+                pa["actions"][i].append(stacked[:, i, : self.act_dims[i]])
+                pa["valid_transitions"][i].append(valid[:, i])
+                if keep_avail:
+                    n = self.act_spaces[i].n
+                    pa["available_actions"][i].append(avail[:, i, :n])
+                    pa["next_available_actions"][i].append(res["available_actions"][:, i, :n])
+            ep_ret = ep_ret + res["rewards"][:, :, 0].mean(axis=1)
+            emitted += float(ep_ret[done_env].sum())
+            counts += float(done_env.sum())
+            ep_ret[done_env] = 0.0
+            obs, share, avail = (res["obs"], common.host_state(res["share_obs"]),
+                                 res["available_actions"])
+            carry = OffRolloutCarry(
+                env_state=None, obs=common.host_tensor(obs, dev),
+                share_obs=common.host_tensor(share, dev), avail=common.host_tensor(avail, dev),
+                agent_deaths=common.host_tensor(deaths, dev), ep_ret=common.host_tensor(ep_ret, dev))
+        state.carry = carry
+        batch = {k: common.host_tensor(np.concatenate(v), dev) for k, v in rows.items()}
+        for k, v in per_agent.items():
+            if v[0]:
+                batch[k] = [common.host_tensor(np.concatenate(x), dev) for x in v]
+        total, S = n_steps * B, state.buffer.buffer_size
+        for lo in range(0, total, S):     # a ring of S rows takes at most S at a time
+            state.buffer.insert({k: [x[lo: lo + S] for x in v] if isinstance(v, list)
+                                 else v[lo: lo + S] for k, v in batch.items()})
+        metrics = dict(episode_return_sum=emitted, episode_count=counts,
+                       mean_step_reward=float(np.mean(np.stack(rows["rewards"]))))
+        return state, {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                       for k, v in metrics.items()}
 
     def train_block(self, state: OffPolicyState):
         """``update_per_train × train_interval`` updates; the metrics hold the
@@ -559,6 +654,37 @@ class OffPolicyRunner:
     def _eval_len(self) -> int:
         return common.eval_len(self.env, 1000)
 
+    @torch.no_grad()
+    def host_eval(self, state: OffPolicyState, n_episodes: int = 10) -> float:
+        """The mean return of the first ``n_episodes`` episodes to end on
+        ``min(n_episodes, 10)`` fresh auto-reset host envs seeded from 50000,
+        under the deterministic actors (off_policy.py:899-950), within
+        ``episode_limit · (n_episodes // n_envs + 2)`` steps; nan if none
+        ended."""
+        n_envs = min(n_episodes, 10)
+        vec = vectorize(make_env(self.args["env"], self.env_args), self.args["env"],
+                        self.env_args, n_envs, seed=50000)
+        obs, _, avail = vec.reset()
+        ep_ret = np.zeros(n_envs)                    # float64, as in the JAX package
+        returns: List[float] = []
+        limit = getattr(self.env, "episode_limit", 1000)
+        for _ in range(limit * (n_episodes // n_envs + 2)):
+            obs_t, avail_t = (common.host_tensor(x, self.device) for x in (obs, avail))
+            stacked = common.stack_actions([
+                actor.deterministic_actions(state.actors[self._sidx(i)].net,
+                                            self._obs_i(obs_t, i), self._avail_i(avail_t, i))
+                for i, actor in enumerate(self.actors)])
+            res = vec.step(stacked.cpu().numpy())
+            done_env = res["dones"].all(axis=1)
+            ep_ret += res["rewards"][:, :, 0].mean(axis=1)
+            returns.extend(ep_ret[done_env].tolist())
+            ep_ret[done_env] = 0.0
+            if len(returns) >= n_episodes:
+                break
+            obs, avail = res["obs"], res["available_actions"]
+        vec.close()
+        return float(np.mean(returns)) if returns else math.nan
+
     # ----------------------------------------------------------- checkpoint
     def checkpoint(self, state: OffPolicyState) -> dict:
         """The full train state as a plain payload (``utils/checkpoint.py``):
@@ -600,12 +726,14 @@ class OffPolicyRunner:
         Returns (state, the log records). With a ``mesh``
         (``parallel/mesh.py``) this process trains its rank's env columns;
         rank 0 alone evaluates, logs and writes, and every rank must get a
-        ``save_dir`` where rank 0 does (the checkpoint gathers the carry)."""
+        ``save_dir`` where rank 0 does (the checkpoint gathers the carry).
+        A host env skips ``model_dir`` and evaluates with ``host_eval``
+        (off_policy.py:951-954, 1037-1093)."""
         self.use_mesh(mesh)
         main = self.mesh.is_main
         state = self.init_state(seed)
         tr, ev = self.algo_args["train"], self.algo_args.get("eval", {}) or {}
-        if tr.get("model_dir"):
+        if tr.get("model_dir") and not self.host_mode:
             state = self.restore(state, tr["model_dir"])
         state = self.warmup_block(state)
         total_blocks = max(int(self.num_env_steps) // self.n_rollout_threads
@@ -632,8 +760,10 @@ class OffPolicyRunner:
                            fps=block * self.train_interval * self.n_rollout_threads
                            / (time.time() - t_start))
                 if use_eval:
-                    eval_ret, extra = self.evaluate(state, n_eval,
-                                                    ev.get("eval_episodes", n_eval))
+                    eval_episodes = ev.get("eval_episodes", n_eval)
+                    eval_ret, extra = ((self.host_eval(state, eval_episodes), {})
+                                       if self.host_mode
+                                       else self.evaluate(state, n_eval, eval_episodes))
                     rec["eval_return"] = eval_ret
                     for k, v in extra.items():
                         rec["eval_win_rate" if k == "won" else f"eval_{k}"] = v

@@ -25,10 +25,21 @@ or naive recurrent updates), vector or (H, W, C) pixel observations (the
 actors on ``CNNBase``; the critic's state stays a vector), Box, Discrete
 (with availability masks) and MultiDiscrete actions (``(…, k)`` integer
 rows, one Gumbel draw a sub-head), ``share_param`` (one network and optimizer for every agent), linear
-lr decay, pure-tensor envs, and data parallelism (``run(mesh=…)``, below).
-Under FP the critic runs per (env, agent) row, the rewards, masks and
-returns are per agent (T, B, N, 1), and the advantages are normalised once
-across agents. Host envs are on the roadmap.
+lr decay, pure-tensor envs, host envs (below) and data parallelism
+(``run(mesh=…)``, below). Under FP the critic runs per (env, agent) row,
+the rewards, masks and returns are per agent (T, B, N, 1), and the
+advantages are normalised once across agents.
+
+Host envs (``is_jax`` false: MAMuJoCo on MuJoCo, gym, the real games;
+on_policy.py:121-135, 629-793): the envs step in NumPy on the host
+(``envs/host.py``; a pre-vectorized env, the native MuJoCo engine, is used
+whole), the policy and critic on the device. ``collect_host`` builds the
+same data as ``rollout``, so ``update_phase`` (and its GAE kernel) is
+shared. As in the JAX package, the host envs seed themselves (1, and 50000
+for evaluation, whatever the run's seed), ``host_eval`` samples the
+training policy with its hidden state and masks left at their initial
+values, and the host render samples too (ROADMAP Queue C). FP states and
+data parallelism over more than one rank refuse a host env.
 
 Data parallelism (``parallel/mesh.py``): rank r of W steps the env columns
 [r·B/W, (r+1)·B/W), drawing every env-axis random number at the global B
@@ -49,12 +60,14 @@ Randomness comes from one ``torch.Generator`` per runner, seeded by
 ``init_state(seed)``, through a noise source (``utils/noise.py``); a caller
 may pass its own noise source instead. Its draws, in order:
 
-  init_state   the env reset, then (from the generator itself) the actors'
-               and the critic's initial weights;
+  init_state   the env reset (none for a host env), then (from the
+               generator itself) the actors' and the critic's initial
+               weights;
   rollout step per agent, ``action_noise`` (Box) or ``gumbel_noise``
                (Discrete) of its head's shape, or (MultiDiscrete)
                ``gumbel_noise`` once per sub-head in sub-head order, each of
-               that sub-head's shape; then the env step's reset draws;
+               that sub-head's shape; then the env step's reset draws (none
+               for a host env);
   update       the agent permutation (random order with N > 1, not MAPPO
                with ``share_param``); with several minibatches, each agent's
                per-epoch shuffles in update order (MAPPO with ``share_param``:
@@ -63,7 +76,8 @@ may pass its own noise source instead. Its draws, in order:
 
 Evaluation and rendering draw from generators of their own, seeded from the
 run's seed and the round (``runners/common.py``), so a run with evaluation
-trains exactly as a run without it.
+trains exactly as a run without it; a host evaluation or render draws the
+rollout step's action noise from its own, step after step.
 """
 from __future__ import annotations
 
@@ -82,7 +96,8 @@ from harl_tpu_torch.algos.critics import CriticBatch, VCritic
 from harl_tpu_torch.algos.happo import ActorBatch
 from harl_tpu_torch.algos.hatrpo import HATRPOActor
 from harl_tpu_torch.envs import make_env
-from harl_tpu_torch.envs.core import VecEnv
+from harl_tpu_torch.envs.core import TimeStep, VecEnv
+from harl_tpu_torch.envs.host import vectorize
 from harl_tpu_torch.models.act import act_sample
 from harl_tpu_torch.models.policies import StochasticPolicy
 from harl_tpu_torch.models.values import VNet
@@ -135,10 +150,12 @@ class OnPolicyRunner:
     """HAPPO, HATRPO, HAA2C and MAPPO runner. ``args``: {"algo", "env", …};
     ``algo_args``: the YAML sections (train/model/algo/eval); ``env_args``:
     env kwargs. ``device`` is CUDA unless given; ``noise`` replaces the
-    generator-backed noise source."""
+    generator-backed noise source; ``env`` replaces the env that ``args``
+    and ``env_args`` name (a host env's further envs are still made from
+    them)."""
 
     def __init__(self, args: dict, algo_args: dict, env_args: dict,
-                 device: DeviceLike = None, noise=None):
+                 device: DeviceLike = None, noise=None, env=None):
         self.device = resolve_device(device)
         self.args, self.algo_args, self.env_args = args, algo_args, env_args
         algo = args.get("algo", "happo")
@@ -172,8 +189,11 @@ class OnPolicyRunner:
         self.actor_updates = al.get(actor_cls.epoch_key, 1) * al.get("actor_num_mini_batch", 1)
         self.critic_updates = al["critic_epoch"] * al["critic_num_mini_batch"]
 
-        env = make_env(args["env"], env_args, self.device)
+        env = make_env(args["env"], env_args, self.device) if env is None else env
         self.env = env
+        self.host_mode = not getattr(env, "is_jax", True)
+        if self.host_mode:
+            self.host_vec = vectorize(env, args["env"], env_args, self.n_rollout_threads)
         self.n_agents = env.n_agents
         self.act_spaces = env.action_space
         # (H, W, C) observations go whole to a CNN torso (on_policy.py:142)
@@ -248,7 +268,10 @@ class OnPolicyRunner:
         (one policy for every agent under ``share_param``)."""
         self.seed = seed
         self.generator.manual_seed(seed)
-        env_state, ts = self.vec.reset(self.noise)
+        if self.host_mode:
+            env_state, ts = None, common.host_timestep(*self.vec.reset(), self.device)
+        else:
+            env_state, ts = self.vec.reset(self.noise)
         md = self.md
         actors = []
         for i in range(1 if self.share_param else self.n_agents):
@@ -278,9 +301,11 @@ class OnPolicyRunner:
         return TrainState(actors, critic, vn, carry)
 
     # --------------------------------------------------------------- rollout
-    def _policy_step(self, actors: List[AgentTrainState], carry: RolloutCarry):
-        """All agents act once: (stacked padded actions, per-agent actions,
-        per-agent log-probs, per-agent new hidden states or None)."""
+    def _policy_step(self, actors: List[AgentTrainState], carry: RolloutCarry, noise=None):
+        """All agents act once, drawing from ``noise`` (the runner's unless
+        given): (stacked padded actions, per-agent actions, per-agent
+        log-probs, per-agent new hidden states or None)."""
+        noise = self.noise if noise is None else noise
         acts, logps, new_rnn = [], [], []
         for i, actor in enumerate(self.actors):
             space = self.act_spaces[i]
@@ -294,12 +319,12 @@ class OnPolicyRunner:
                 head, _ = net(obs_i)
             kind = spaces.space_kind(space)
             if kind == "MultiDiscrete":
-                noise = [self.noise.gumbel_noise(h.shape) for h in head]
+                draw = [noise.gumbel_noise(h.shape) for h in head]
             elif kind == "Discrete":
-                noise = self.noise.gumbel_noise(head[0].shape)
+                draw = noise.gumbel_noise(head[0].shape)
             else:
-                noise = self.noise.action_noise(head[0].shape)
-            out = act_sample(noise, head, space, avail_i,
+                draw = noise.action_noise(head[0].shape)
+            out = act_sample(draw, head, space, avail_i,
                              std_x_coef=actor.std_x_coef, std_y_coef=actor.std_y_coef)
             acts.append(out.actions)
             logps.append(out.log_probs)
@@ -377,6 +402,11 @@ class OnPolicyRunner:
             carry, step = self.rollout_step(state, carry)
             steps.append(step)
         state.carry = carry
+        return self._stack_steps(steps)
+
+    def _stack_steps(self, steps: List[dict]) -> Dict[str, Any]:
+        """Per-step data → time-major tensors (per-agent lists for actions,
+        logp and actor_rnn; a dict for the emitted metrics)."""
         data = {k: torch.stack([s[k] for s in steps]) for k in steps[0]
                 if k not in PER_AGENT_KEYS and k != "emitted_metrics"}
         for k in PER_AGENT_KEYS:
@@ -386,12 +416,69 @@ class OnPolicyRunner:
                                    for k in steps[0]["emitted_metrics"]}
         return data
 
+    @torch.no_grad()
+    def collect_host(self, state: TrainState) -> Dict[str, Any]:
+        """``episode_length`` steps of the host envs (on_policy.py:641-723):
+        each step the policies and the critic on the device, the actions
+        copied to the host, the envs stepped there and their arrays copied
+        back. Advances ``state.carry`` and returns the data of ``rollout``.
+        As in the JAX package: the team reward is agent 0's, a step is a
+        truncation where any agent's info says so, and the episode return
+        adds the float32 mean reward over agents on the host."""
+        B, N, dev = self.n_envs, self.n_agents, self.device
+        carry, steps = state.carry, []
+        ep_ret = carry.ep_ret.cpu().numpy()
+        for _ in range(self.episode_length):
+            actions, acts, logps, new_actor_rnn = self._policy_step(state.actors, carry)
+            value, new_critic_rnn = self._values(state.critic.net, carry.share_obs,
+                                                 carry.critic_rnn, carry.masks)
+            res = self.vec.step(actions.cpu().numpy())
+            dones = res["dones"]                                       # (B, N) bool
+            done_env = dones.all(axis=1)
+            bad = np.array([0.0 if any(a.get("bad_transition", False) for a in info) else 1.0
+                            for info in res["infos"]], np.float32)[:, None]
+            new_masks = np.ones((B, N, 1), np.float32)
+            new_masks[done_env] = 0.0
+            new_active = np.where(dones[..., None], 0.0, 1.0).astype(np.float32)
+            new_active[done_env] = 1.0
+            ep_ret = ep_ret + res["rewards"][:, :, 0].mean(axis=1)
+            step = dict(obs=carry.obs, share_obs=carry.share_obs, masks=carry.masks,
+                        active_masks=carry.active_masks, actions=acts, logp=logps, value=value,
+                        emitted_metrics={})
+            for k, v in (("reward", res["rewards"][:, 0]), ("next_masks", new_masks[:, 0]),
+                         ("next_bad_masks", bad), ("next_active", new_active),
+                         ("emitted_ret", np.where(done_env, ep_ret, 0.0)),
+                         ("emitted_cnt", done_env)):
+                step[k] = common.host_tensor(v, dev)
+            if carry.avail is not None:
+                step["avail"] = carry.avail
+            masks = common.host_tensor(new_masks, dev)
+            if self.use_rnn:
+                # hidden states at the INPUT of step t, zeroed where an env ended
+                step["actor_rnn"], step["critic_rnn"] = carry.actor_rnn, carry.critic_rnn
+                d3 = masks[:, :1] == 0
+                actor_rnn = [torch.where(d3, 0.0, h) for h in new_actor_rnn]
+                critic_rnn = torch.where(d3, 0.0, new_critic_rnn)
+            else:
+                actor_rnn = critic_rnn = None
+            steps.append(step)
+            ep_ret = np.where(done_env, 0.0, ep_ret).astype(np.float32)
+            ts = common.host_timestep(res["obs"], res["share_obs"], res["available_actions"],
+                                      dev)
+            carry = RolloutCarry(
+                env_state=None, obs=ts.obs, share_obs=ts.share_obs, masks=masks,
+                active_masks=step["next_active"], avail=ts.available_actions,
+                actor_rnn=actor_rnn, critic_rnn=critic_rnn,
+                ep_ret=common.host_tensor(ep_ret, dev))
+        state.carry = carry
+        return self._stack_steps(steps)
+
     # ------------------------------------------------------------- iteration
     def train_iteration(self, state: TrainState):
         """One rollout + update; updates ``state`` in place, returns
         (state, metrics) with the metrics as tensors on the device."""
         first_masks0 = state.carry.masks[:, 0]
-        data = self.rollout(state)
+        data = self.collect_host(state) if self.host_mode else self.rollout(state)
         c = state.carry
         metrics = self.update_phase(state, data, first_masks0, c.share_obs, c.masks, c.critic_rnn)
         return state, metrics
@@ -611,13 +698,60 @@ class OnPolicyRunner:
     def _eval_len(self) -> int:
         return common.eval_len(self.env, self.episode_length)
 
+    def _host_carry(self, ts: TimeStep) -> RolloutCarry:
+        """A fresh carry for an evaluation or render batch of host envs."""
+        B, N, H = ts.obs.shape[0], self.n_agents, self.hidden_sizes[-1]
+        rnn = [torch.zeros((B, self.recurrent_n, H), device=self.device)
+               for _ in range(N)] if self.use_rnn else None
+        ones = torch.ones((B, N, 1), device=self.device)
+        return RolloutCarry(env_state=None, obs=ts.obs, share_obs=ts.share_obs, masks=ones,
+                            active_masks=ones, avail=ts.available_actions, actor_rnn=rnn,
+                            critic_rnn=None, ep_ret=torch.zeros(B, device=self.device))
+
+    @torch.no_grad()
+    def host_eval(self, state: TrainState, n_episodes: int = 10, noise=None) -> float:
+        """The mean return of the first episode of each of ``min(n_episodes,
+        10)`` fresh host envs seeded from 50000 (an env still running at the
+        horizon counts its partial return), as ``host_eval`` of the JAX
+        package (on_policy.py:738-793) computes it: the training policy
+        samples its actions (from ``noise``, else a generator of its own),
+        and the hidden states and masks keep their initial values."""
+        noise = noise if noise is not None else common.derived_noise(
+            self.seed, common.HOST_EVAL_SALT, 0, self.device)
+        n_envs = min(n_episodes, 10)
+        vec = vectorize(make_env(self.args["env"], self.env_args), self.args["env"],
+                        self.env_args, n_envs, seed=50000)
+        carry = self._host_carry(common.host_timestep(*vec.reset(), self.device))
+        ep_ret = np.zeros(n_envs)                    # float64, as in the JAX package
+        alive = np.ones(n_envs, bool)
+        returns: List[float] = []
+        for _ in range(getattr(self.env, "episode_limit", 1000)):
+            stacked, *_ = self._policy_step(state.actors, carry, noise)
+            res = vec.step(stacked.cpu().numpy())
+            done_env = res["dones"].all(axis=1)
+            ep_ret += res["rewards"][:, :, 0].mean(axis=1) * alive
+            returns.extend(ep_ret[done_env & alive].tolist())
+            alive &= ~done_env
+            if not alive.any():
+                break
+            ts = common.host_timestep(res["obs"], res["share_obs"], res["available_actions"],
+                                      self.device)
+            carry = carry._replace(obs=ts.obs, share_obs=ts.share_obs, avail=ts.available_actions)
+        vec.close()
+        returns.extend(ep_ret[alive].tolist())
+        return float(np.mean(returns))
+
     @torch.no_grad()
     def render(self, state: TrainState, episodes: int = 10, save_path: Optional[str] = None):
         """Deterministic rollouts of ``episodes`` envs over one env horizon,
         saved as ``.npz`` trajectories (obs, actions, rewards) for offline
         viewing (on_policy.py:947-992); returns each env's reward sum. As in
-        the JAX package, a recurrent policy acts from zero hidden states."""
+        the JAX package, a recurrent policy acts from zero hidden states.
+        A host env renders through its own ``render()`` instead
+        (``_render_host``)."""
         noise = common.derived_noise(self.seed, common.RENDER_SALT, 0, self.device)
+        if self.host_mode:
+            return self._render_host(state, episodes, noise)
         vec = VecEnv(self.env, episodes)
         env_state, ts = vec.reset(noise)
         obs, avail = ts.obs, ts.available_actions
@@ -635,6 +769,50 @@ class OnPolicyRunner:
                      actions=torch.stack(act_traj).cpu().numpy(), rewards=rewards)
             print(f"saved render trajectories to {save_path}")
         return [float(r) for r in rewards.sum(axis=0)]
+
+    def _render_host(self, state: TrainState, episodes: int, noise) -> List[float]:
+        """``episodes`` episodes of one fresh host env, each up to the env's
+        ``episode_limit`` (1000 without one), calling its ``render()`` after
+        every step (on_policy.py:904-946): the training policy samples its
+        actions from ``noise``, from the initial hidden states and masks.
+        Returns each episode's agent-0 reward sum. A pre-vectorized env runs
+        as a batch of one."""
+        env = make_env(self.args["env"], self.env_args)
+        batched = getattr(env, "is_vectorized", False)
+        if batched:
+            env.ensure_envs(1)
+        returns = []
+        for ep in range(episodes):
+            obs, share, avail = env.reset()
+            if not batched:
+                obs, share, avail = (None if x is None else np.asarray(x)[None]
+                                     for x in (obs, share, avail))
+            carry = self._host_carry(common.host_timestep(obs, share, avail, self.device))
+            total = 0.0
+            for _ in range(getattr(self.env, "episode_limit", 1000)):
+                stacked = self._policy_step(state.actors, carry, noise)[0].cpu().numpy()
+                if batched:
+                    res = env.step(stacked)
+                    o, sh, r, d, av = (res["obs"], res["share_obs"], res["rewards"][0],
+                                       res["dones"][0], res["available_actions"])
+                else:
+                    o, sh, r, d, _, av = env.step(stacked[0])
+                    o, sh, av = (None if x is None else np.asarray(x)[None] for x in (o, sh, av))
+                if hasattr(env, "render"):
+                    try:
+                        env.render()
+                    except Exception:        # an env without a viewer here
+                        pass
+                total += float(r[0, 0])
+                if np.all(d):
+                    break
+                ts = common.host_timestep(o, sh, av, self.device)
+                carry = carry._replace(obs=ts.obs, share_obs=ts.share_obs,
+                                       avail=ts.available_actions)
+            returns.append(total)
+            print(f"render episode {ep}: return {total:.2f}")
+        env.close()
+        return returns
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint(self, state: TrainState) -> dict:
@@ -731,8 +909,11 @@ class OnPolicyRunner:
                         log_fn(rec)
                 if episode % eval_interval == 0 or episode == self.episodes:
                     if use_eval:
-                        eval_ret, extra = self.evaluate(state, n_eval,
-                                                        ev.get("eval_episodes", n_eval))
+                        # a host env: the JAX package's host evaluation
+                        # (on_policy.py:776-779)
+                        eval_ret, extra = ((self.host_eval(state, n_eval), {}) if self.host_mode
+                                           else self.evaluate(state, n_eval,
+                                                              ev.get("eval_episodes", n_eval)))
                         if logger is not None and main:
                             logger.log_eval(episode * steps_per_iter, eval_ret, extra)
                         if history:

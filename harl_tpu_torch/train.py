@@ -23,7 +23,10 @@ Data parallelism (``parallel/mesh.py``), as the JAX CLI's flags:
 ``n_rollout_threads`` is the global env batch, split over the ranks. The
 process with ``process_id`` 0 alone creates the run directory, and its
 first rank alone logs and writes checkpoints. A worker that fails makes
-``main`` raise.
+``main`` raise. A host env (``--env mamujoco``, ``gym``, the real games)
+trains on one rank: with more, ``main`` raises ``ValueError`` before it
+starts any, where the JAX CLI ignores the mesh and would leave
+unsynchronised replicas.
 """
 from __future__ import annotations
 
@@ -174,13 +177,19 @@ def main(argv=None) -> str:
         if process_id is None:
             process_id = int(os.environ.get("RANK", 0))
 
+    world = num_processes * n_local
+    if world > 1 and not rendering:
+        from harl_tpu_torch.envs import is_host_env
+
+        if is_host_env(args["env"], env_args):
+            raise ValueError(f"host env {args['env']!r}: data parallelism over {world} ranks "
+                             "needs a tensor env; train it on one (--n_devices 1)")
     seed = algo_args["seed"]["seed"] if algo_args["seed"].get("seed_specify", True) else 1
     dirs = (None, None, "")
     if process_id == 0:
         dirs = init_dir(args["env"], env_args, args["algo"], args["exp_name"], seed,
                         algo_args.get("logger", {}).get("log_dir", "./results"))
         save_config(args, algo_args, env_args, dirs[0])
-    world = num_processes * n_local
     if world == 1 or rendering:
         _train(args, algo_args, env_args, device, seed, dirs)
     else:

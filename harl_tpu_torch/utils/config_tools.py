@@ -18,18 +18,11 @@ CONFIG_ROOT = Path(__file__).resolve().parent.parent / "configs"
 
 
 def get_defaults_yaml_args(algo: str, env: str) -> Tuple[Dict, Dict]:
-    """Load the algo and env default YAMLs shipped with the port."""
+    """Load the algo and env default YAMLs shipped with the port, one for
+    every YAML of the JAX package; a name without one raises
+    ``FileNotFoundError``."""
     algo_path = CONFIG_ROOT / "algos_cfgs" / f"{algo}.yaml"
     env_path = CONFIG_ROOT / "envs_cfgs" / f"{env}.yaml"
-    for path in (algo_path, env_path):
-        if not path.exists():
-            raise NotImplementedError(
-                f"{path.name}: the port ships the YAMLs of all ten algorithms (happo, "
-                "hatrpo, haa2c, mappo, hasac, haddpg, hatd3, had3qn, maddpg, matd3) and of "
-                "every pure-tensor env: mamujoco_jax, pettingzoo_mpe, smaclite, smac and "
-                "smacv2 (with the 15 SMACv2 map configs), dexhands_jax, football_jax and "
-                "lag_jax; the host envs' are not (ROADMAP.md, tooling)"
-            )
     with open(algo_path) as f:
         algo_args = yaml.safe_load(f)
     with open(env_path) as f:

@@ -182,9 +182,19 @@ def test_unhealthy_termination_and_auto_reset_match_jax():
 def test_unported_mamujoco_scenarios_name_their_item():
     # every mamujoco_jax scenario is ported (manyagent_ant, manyagent_swimmer,
     # coupled_half_cheetah and Reacher-v2 since, in their own test files);
-    # the host MAMuJoCo env stays unported, naming the tooling item
+    # the host MAMuJoCo env (ported since, tests/test_torch_host_*.py) runs
+    # gymnasium's tasks, which have none of the first three, and refuses
+    # Reacher's 2 joints for six agents, as the JAX package's does
+    import gymnasium
+
     for scenario, n_agents in (("manyagent_ant", 2), ("manyagent_swimmer", 4),
                                ("coupled_half_cheetah", 2), ("Reacher-v2", 2)):
         assert make_env("mamujoco_jax", {"scenario": scenario}, device="cpu").n_agents == n_agents
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, tooling"):
-            make_env("mamujoco", {"scenario": scenario}, device="cpu")
+        if scenario == "Reacher-v2":
+            with pytest.raises(ValueError, match="exceeds action dim 2"):
+                make_env("mamujoco", {"scenario": scenario}, device="cpu")
+            assert make_env("mamujoco", {"scenario": scenario, "agent_conf": "2x1"},
+                            device="cpu").n_agents == 2
+        else:
+            with pytest.raises(gymnasium.error.NameNotFound):
+                make_env("mamujoco", {"scenario": scenario}, device="cpu")

@@ -1,0 +1,135 @@
+"""Port parity: the off-policy host path (``_host_steps``, off_policy.py:
+809-897) for a warmup and an exploration block, then a train block,
+replayed against the JAX runner on HalfCheetah-2x3 on the native engine.
+
+Both runners step their own native engines, seeded alike. The port's
+runner gets the JAX networks through ``convert`` and, through a replaying
+noise source, the draws of the JAX host steps (each step splits the rng
+three ways and agent i draws from ``fold_in(k1, i)``: the warmup's
+uniforms, the exploration normals) and of the train block (the draws of
+``tests/test_torch_runner_off_policy.py``).
+
+The warmup's rows are bitwise equal: the uniform actions are, and the same
+engine steps the same controls. The exploration actions come from the
+networks, whose sums differ from JAX's in the last bits, so those rows
+are held at the data tolerance.
+"""
+import copy
+
+import jax
+import numpy as np
+import pytest
+
+from harl_tpu.runners.off_policy import OffPolicyRunner as JRunner
+from harl_tpu.utils.config_tools import get_defaults_yaml_args as jdefaults
+from harl_tpu_torch.envs.mamujoco.native_vec import NativeMAMuJoCoVec
+from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+from harl_tpu_torch.utils import convert
+
+from tests.test_torch_runner_off_policy import BATCH, _queue_train
+from tests.torch_replay import ReplayNoise, queue_host_off_policy_steps
+
+B, WARM, EXPLORE = 4, 2, 2
+DATA_RTOL, DATA_ATOL = 1e-4, 2e-4
+PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
+ENV_ARGS = {"scenario": "HalfCheetah-v2", "agent_conf": "2x3", "episode_limit": 3,
+            "backend": "native"}
+
+
+def _configs(algo):
+    algo_args, env_args = jdefaults(algo, "mamujoco")
+    algo_args["train"].update(n_rollout_threads=B, warmup_steps=WARM * B,
+                              train_interval=EXPLORE, update_per_train=1, num_env_steps=10 ** 6)
+    algo_args["algo"].update(batch_size=BATCH, buffer_size=200)
+    if algo == "hasac":
+        algo_args["algo"]["n_step"] = 3
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    # episodes of 3 steps: every env truncates once in the 4 steps
+    env_args.update(ENV_ARGS)
+    return algo_args, env_args
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(a, b, rtol=DATA_RTOL, atol=DATA_ATOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
+
+
+def _policy_sd(algo):
+    return (convert.squashed_policy_state_dict if algo == "hasac"
+            else convert.deterministic_policy_state_dict)
+
+
+def _columns(buf):
+    """The buffer's columns by name: env-level tensors and per-agent lists."""
+    cols = {k: [getattr(buf, k)] for k in ("share_obs", "next_share_obs", "rewards", "dones",
+                                           "terms")}
+    cols.update({k: list(getattr(buf, k)) for k in ("obs", "next_obs", "actions",
+                                                    "valid_transitions")})
+    return cols
+
+
+@pytest.mark.parametrize("algo", ["hatd3", "hasac"])
+def test_host_steps_and_train_block_match_jax(algo):
+    algo_args, env_args = _configs(algo)
+    args = {"algo": algo, "env": "mamujoco", "exp_name": "parity"}
+    jr = JRunner(args, copy.deepcopy(algo_args), copy.deepcopy(env_args))
+    js = jr.init_state(0)
+    noise = ReplayNoise()
+    tr = OffPolicyRunner(args, algo_args, env_args, device="cpu", noise=noise)
+    assert tr.host_mode and isinstance(tr.vec, NativeMAMuJoCoVec)
+    ts = tr.init_state(0)
+    to_sd = _policy_sd(algo)
+    for st, jst in zip(ts.actors, js.actors):
+        st.net.load_state_dict(to_sd(_np(jst.params)))
+        st.target.load_state_dict(to_sd(_np(jst.target_params)))
+    ts.critic.nets.load_state_dict(convert.q_nets_state_dict(_np(js.critic.params)))
+    ts.critic.targets.load_state_dict(convert.q_nets_state_dict(_np(js.critic.target_params)))
+    np.testing.assert_array_equal(ts.carry.obs.numpy(), np.asarray(js.carry.obs))
+
+    dims = [sp.shape[0] for sp in jr.act_spaces]
+    rng = queue_host_off_policy_steps(noise, js.rng, WARM, [("uniform", (B, d)) for d in dims])
+    rng = queue_host_off_policy_steps(noise, rng, EXPLORE, [("normal", (B, d)) for d in dims])
+    _queue_train(noise, jr, rng, EXPLORE, cur_size=(WARM + EXPLORE) * B)
+
+    js, _ = jr._host_steps(js, WARM, explore="random")
+    js, jcm = jr._host_steps(js, EXPLORE, explore=True)
+    js, jtm = jr._train(js)
+    ts = tr.warmup_block(ts)
+    ts, tcm = tr.collect_block(ts)
+    rows = ts.buffer.cur_size
+    assert rows == int(js.buffer.cur_size) == (WARM + EXPLORE) * B
+    warm = WARM * B
+    tcols, jcols = _columns(ts.buffer), _columns(js.buffer)
+    for name, tlist in tcols.items():
+        for t, j in zip(tlist, jcols[name]):
+            np.testing.assert_array_equal(t[:warm].numpy(), np.asarray(j[:warm]), err_msg=name)
+            _close(t[warm:rows], j[warm:rows])
+    # every env truncated once: dones without terms
+    assert float(ts.buffer.dones.sum()) == B and float(ts.buffer.terms.sum()) == 0
+    for k in ("episode_return_sum", "episode_count", "mean_step_reward"):
+        _close(tcm[k], jcm[k])
+    _close(ts.carry.obs, js.carry.obs)
+    _close(ts.carry.ep_ret, js.carry.ep_ret)
+    np.testing.assert_array_equal(ts.carry.agent_deaths.numpy(), np.asarray(js.carry.agent_deaths))
+
+    ts, ttm = tr.train_block(ts)
+    assert noise.drained()
+    assert ts.total_it == int(js.total_it) == EXPLORE
+    _close(ttm["critic_loss"], jtm["critic_loss"])
+    for st, jst in zip(ts.actors, js.actors):
+        for net, params in ((st.net, jst.params), (st.target, jst.target_params)):
+            ref = to_sd(_np(params))
+            for k, v in net.state_dict().items():
+                _close(v, ref[k], PARAM_RTOL, PARAM_ATOL)
+    for nets, params in ((ts.critic.nets, js.critic.params),
+                         (ts.critic.targets, js.critic.target_params)):
+        ref = convert.q_nets_state_dict(_np(params))
+        for k, v in nets.state_dict().items():
+            _close(v, ref[k], PARAM_RTOL, PARAM_ATOL)
+
+    # the deterministic host evaluation: fresh envs seeded from 50000, until
+    # three episodes have ended
+    _close(tr.host_eval(ts, 3), jr.host_eval(js, 3))

@@ -288,12 +288,14 @@ def test_off_policy_unported_options_raise():
         assert state.buffer.share_obs.dim() == (3 if env_args_d.get("state_type") == "FP"
                                                 else 2)
         assert math.isfinite(float(tm["critic_loss"])) and state.total_it == 2
-    with pytest.raises(NotImplementedError, match="host.*ROADMAP"):
-        OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args, env_args,
-                        device="cpu")
-    # what stays refused: the host envs, and the real games behind them
-    for env, extra in (("smac", {"map_name": "3m"}), ("dexhands", {})):
-        with pytest.raises(NotImplementedError, match="native.*ROADMAP"):
+    # the host envs, refused before, run (tests/test_torch_host_*.py); the
+    # real games behind them need their packages, missing here
+    host = OffPolicyRunner({"algo": "hasac", "env": "mamujoco"}, algo_args,
+                           dict(env_args, agent_conf="2x3"), device="cpu")
+    assert host.host_mode and host.n_agents == 2
+    for env, extra, package in (("smac", {"map_name": "3m"}, "StarCraft II"),
+                                ("dexhands", {}, "IsaacGym")):
+        with pytest.raises(ImportError, match=package):
             OffPolicyRunner({"algo": "hasac", "env": env}, algo_args,
                             dict(extra, backend="native"), device="cpu")
     # the training loop and evaluation, refused before, run; so do meshes

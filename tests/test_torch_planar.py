@@ -133,11 +133,16 @@ def test_gauss_solve_matches_linalg():
 
 
 def test_unported_envs_raise():
-    # the host envs stay unported, naming the tooling item; an unknown planar
-    # scenario raises ValueError, as the JAX package's make_planar does
-    for name in ("football", "lag", "mamujoco", "gym"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, tooling"):
-            make_env(name, {}, device="cpu")
+    # the host envs, ported since (tests/test_torch_host_*.py): MAMuJoCo and
+    # gym build, gfootball's and LAG's adapters name their missing packages;
+    # an unknown planar scenario raises ValueError, as the JAX package's
+    # make_planar does
+    assert not getattr(make_env("mamujoco", {}, device="cpu"), "is_jax", True)
+    assert make_env("gym", {}, device="cpu").n_agents == 1
+    with pytest.raises(ImportError, match="gfootball"):
+        make_env("football", {}, device="cpu")
+    with pytest.raises(ImportError, match="CloseAirCombat"):
+        make_env("lag", {"task": "2v2"}, device="cpu")
     with pytest.raises(ValueError, match="Unknown env"):
         make_env("starcraft", {}, device="cpu")
     with pytest.raises(ValueError, match="no planar spec"):

@@ -227,6 +227,6 @@ def test_registry_and_unported_names():
         env = make_smaclite(name)
         assert env.randomize_types and (env.n_allies, env.n_enemies) == sizes
     assert make_env("smac", {}, device="cpu").n_agents == 5
-    # the real game stays unported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the real game: its adapter, whose package is missing here
+    with pytest.raises(ImportError, match="StarCraft II"):
         make_env("smac", {"backend": "native"}, device="cpu")

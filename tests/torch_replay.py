@@ -192,6 +192,57 @@ def multi_gumbel_fold_in(key, shapes):
     return [gumbel_noise(jax.random.fold_in(key, j), sh) for j, sh in enumerate(shapes)]
 
 
+def _draw(noise, kind, key, shape, high=None):
+    """Queue one draw of ``kind`` ("normal", "gumbel", "uniform" or
+    "randint" below ``high``) from ``key``."""
+    if kind == "normal":
+        noise.actions.append(normal(key, shape))
+    elif kind == "gumbel":
+        noise.gumbels.append(gumbel_noise(key, shape))
+    elif kind == "uniform":
+        noise.uniforms.append(uniform(key, shape))
+    else:
+        noise.ints.append((high, randint(key, shape, high)))
+
+
+def queue_host_rollout(noise, rng, steps, draws):
+    """Queue the action draws of ``steps`` steps of the JAX on-policy host
+    path (``collect_host`` and ``host_eval``, on_policy.py:658, 774): each
+    step splits ``rng`` once and agent i samples from ``fold_in(k, i)``
+    (``:289``); the host envs draw nothing. ``draws`` is per agent
+    ("normal" or "gumbel", shape). Returns the rng after the steps."""
+    for _ in range(steps):
+        rng, k = jax.random.split(rng)
+        for i, (kind, shape) in enumerate(draws):
+            _draw(noise, kind, jax.random.fold_in(k, i), shape)
+    return rng
+
+
+def queue_host_update(noise, rng, n_agents, fixed_order=False):
+    """Queue the agent permutation of the update after a host collection,
+    from ``rng, k_order, k_update, k_critic = split(rng, 4)``
+    (on_policy.py:727); returns (k_update, k_critic) for the minibatch
+    shuffles, which one minibatch does not draw."""
+    _, k_order, k_update, k_critic = jax.random.split(rng, 4)
+    if n_agents > 1 and not fixed_order:
+        noise.perms.append(np.asarray(jax.random.permutation(k_order, n_agents)))
+    return k_update, k_critic
+
+
+def queue_host_off_policy_steps(noise, rng, steps, draws):
+    """Queue the draws of ``steps`` steps of the JAX off-policy host path
+    (``_host_steps``, off_policy.py:825-829): each step splits ``rng``
+    three ways and agent i draws from ``fold_in(k1, i)``; ``draws`` is per
+    agent (kind, shape[, high]) as ``_draw`` takes them: the warmup's
+    "uniform" (Box) or "randint" (Discrete), the exploration "normal" (Box)
+    or "gumbel" (HASAC's Discrete). Returns the rng after the steps."""
+    for _ in range(steps):
+        rng, k1, _ = jax.random.split(rng, 3)
+        for i, (kind, shape, *high) in enumerate(draws):
+            _draw(noise, kind, jax.random.fold_in(k1, i), shape, *high)
+    return rng
+
+
 def gumbel_noise(key, shape):
     """The standard Gumbel draw of ``jax.random.categorical(key, logits)``
     with logits of ``shape`` (argmax(gumbel + logits), jax 0.9)."""
