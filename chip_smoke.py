@@ -6,7 +6,7 @@
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
 run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-20, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
+20, 21, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
 session leaves the process slower, so every timed run comes before the
 first one.
 
@@ -172,7 +172,13 @@ first one.
    rows, MLP [256, 256]), 2 blocks, with env-steps/s, the buffer's GiB and
    every inserted row counted; (c) a small HAPPO GRU iteration on the
    Discrete stand-in and a small HATD3 block on the card against the CPU
-   (actions, availability, masks and bad masks equal).
+   (actions, availability, masks and bad masks equal);
+21. learning parity: ``scripts/torch_learning_parity.py`` on one of its
+   runs, the tuned academy pass_and_shoot_with_keeper HAPPO at its widths
+   (256 envs x 200 steps, GRU), seed 1, cut to 2 iterations and the
+   evaluation at the last: the GAE kernel launched once an iteration, its
+   error on the run's own inputs (T=200, b=256) within 1e-5 of the largest
+   return, the score-rate curve and the run's record written.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -2879,6 +2885,66 @@ def check_host_against_cpu(devices=("cpu", "cuda")) -> None:
     check_off_policy_against_cpu("hatd3", devices, make, label="host hatd3 stand-in")
 
 
+# ------------------------------------------------- learning parity (phase 21)
+PARITY_RUN = "football_pass_and_shoot_with_keeper"
+PARITY_ITERATIONS = 2
+
+
+def load_parity_script():
+    """``scripts/torch_learning_parity.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_learning_parity.py")
+    spec = importlib.util.spec_from_file_location("torch_learning_parity", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def drive_parity_path(card: str, log_dir: str, platform: str = "cuda",
+                      extra: tuple = ()) -> tuple:
+    """Phase 21: ``scripts/torch_learning_parity.py`` on one of its runs,
+    tuned academy pass_and_shoot_with_keeper HAPPO at its widths (256 envs
+    x 200 steps, GRU, 15 epochs of 2 minibatches), seed 1, cut to 2
+    iterations and the evaluation at the last one (the config's 100
+    episodes on 50 envs). The GAE kernel launched once an iteration, its
+    error on the run's own inputs (T=200, b=256) within 1e-5 of the
+    largest return, the curves and the record written. Returns (launches,
+    the in-situ GAE numbers)."""
+    parity = load_parity_script()
+    out = os.path.join(log_dir, "curves")
+    zero_launches()
+    t0 = time.perf_counter()
+    rec = parity.run_one(PARITY_RUN, 1, platform, out, os.path.join(log_dir, "runs"),
+                         PARITY_ITERATIONS, extra)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = PARITY_ITERATIONS if platform == "cuda" else 0
+    if (launches["gae"], rec["gae_launches"], launches["discounted_returns"]) != (want, want, 0):
+        raise AssertionError(f"parity {PARITY_RUN}: launches {launches}, the record's "
+                             f"{rec['gae_launches']} (gae once an iteration)")
+    situ = rec["gae_in_situ"]
+    if situ["max_abs_err"] > parity.GAE_REL_BOUND * situ["max_abs_return"]:
+        raise AssertionError(f"parity {PARITY_RUN}: in-situ gae error {situ}")
+    steps = rec["env_steps"]
+    with open(os.path.join(out, f"{PARITY_RUN}_s1_won.csv")) as f:
+        won = [line.strip().split(",") for line in f]
+    if len(rec["eval_s"]) != 1 or [int(s) for s, _ in won] != [steps] or \
+            not 0.0 <= float(won[0][1]) <= 1.0:
+        raise AssertionError(f"parity {PARITY_RUN}: evals {rec['eval_s']}, won curve {won}")
+    print(f"parity {PARITY_RUN}: scripts/torch_learning_parity.py, {rec['iterations']} "
+          f"iterations of {', '.join(f'{t:.4f}' for t in rec['iteration_s'])} s and an eval "
+          f"of {rec['eval_s'][0]:.2f} s (score rate {float(won[0][1]):.3f}), "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s over the run, {wall:.2f} s in all; gae "
+          f"launched {launches['gae']} times, in situ (T={situ['T']}, b={situ['b']}) max "
+          f"|err| {situ['max_abs_err']:.3g} of returns up to {situ['max_abs_return']:.3g}, "
+          f"{situ['ms'] if situ['ms'] is None else round(situ['ms'] * 1e3, 3)} us warm, bound "
+          f"{situ['bound_ms'] * 1e3:.3f} us; peak {rec['peak_cuda_bytes']} bytes on the "
+          f"device on {card}", flush=True)
+    return {"parity_" + PARITY_RUN: launches}, situ
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -2938,6 +3004,11 @@ def main() -> int:
     check_dp_options_against_cpu()
     host_paths, host_gae = drive_host_paths(card, floor)
     check_host_against_cpu()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        parity_paths, parity_gae = drive_parity_path(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -2947,7 +3018,7 @@ def main() -> int:
     slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
-               **slice9, **dp_paths, **host_paths}
+               **slice9, **dp_paths, **host_paths, **parity_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -2960,7 +3031,7 @@ def main() -> int:
                          shadowhandover_in_situ=handover_gae,
                          soccer_in_situ=slice9_gae["soccer_happo"],
                          aircombat_in_situ=slice9_gae["aircombat_happo"],
-                         host_in_situ=host_gae,
+                         host_in_situ=host_gae, parity_in_situ=parity_gae,
                          **{f"dp_{k}_in_situ": v for k, v in dp_gae.items()})
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,

@@ -892,6 +892,8 @@ class OnPolicyRunner:
                     rec = dict(
                         episode=episode, steps=episode * steps_per_iter,
                         mean_episode_return=last_return,
+                        # the iteration's mean reward an agent and step
+                        mean_step_reward=float(metrics["mean_step_reward"]),
                         value_loss=float(metrics["value_loss"]),
                         critic_grad_norm=float(metrics["critic_grad_norm"]),
                         dead_ratio=float(metrics["dead_ratio"]),

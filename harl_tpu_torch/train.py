@@ -143,9 +143,10 @@ def _worker(local_rank, args, algo_args, env_args, seed, dirs, dp) -> None:
         dpmesh.shutdown()
 
 
-def main(argv=None) -> str:
-    """Train (or render) as the command line says; returns the run
-    directory (None in a process other than ``process_id`` 0)."""
+def resolve_args(argv=None) -> tuple:
+    """(main args, algo args, env args) of a command line: the saved config
+    or the YAML defaults with the ``--key value`` overrides applied, as the
+    JAX CLI resolves them (``harl_tpu/train.py:34-63``)."""
     parser = argparse.ArgumentParser(description="HARL training on PyTorch/CUDA")
     parser.add_argument("--algo", default="happo", choices=list(ALGOS))
     parser.add_argument("--env", default="pettingzoo_mpe")
@@ -154,8 +155,8 @@ def main(argv=None) -> str:
     args, unparsed = parser.parse_known_args(argv)
     args = vars(args)
 
-    from harl_tpu_torch.utils.config_tools import (get_defaults_yaml_args, init_dir,
-                                                   load_config, save_config, update_args)
+    from harl_tpu_torch.utils.config_tools import (get_defaults_yaml_args, load_config,
+                                                   update_args)
 
     if args["load_config"]:
         saved_main, algo_args, env_args = load_config(args["load_config"])
@@ -164,6 +165,15 @@ def main(argv=None) -> str:
     else:
         algo_args, env_args = get_defaults_yaml_args(args["algo"], args["env"])
     update_args(_parse_unknown(unparsed), algo_args, env_args)
+    return args, algo_args, env_args
+
+
+def main(argv=None) -> str:
+    """Train (or render) as the command line says; returns the run
+    directory (None in a process other than ``process_id`` 0)."""
+    from harl_tpu_torch.utils.config_tools import init_dir, save_config
+
+    args, algo_args, env_args = resolve_args(argv)
     device = select_device(algo_args)
     dev = algo_args.get("device", {}) or {}
     n_local = local_workers(algo_args, device)

@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Learning parity of the PyTorch/CUDA port: train the runs behind the JAX
+package's recorded learning results through ``harl_tpu_torch.train.main``,
+with several seeds, and hold each run against its record.
+
+    python scripts/torch_learning_parity.py [--runs NAME,...] [--seeds 1,2,3]
+        [--jobs N] [--iterations N] [--platform cpu] [--out validation_torch]
+        [--log_dir DIR] [--table] [-- EXTRA ARGV]
+
+Run it from the root of the repository (the run table's paths are
+relative to it). ``RUNS`` holds one entry a run: the argv of the JAX command that produced
+the record (``scripts/r3_queue5.sh:12-21``; round 1 of ``VALIDATION.md``
+for HalfCheetah), the GAE shape the run gives the kernel, and the record
+itself, as read from ``validation/r3/*_won.csv`` or ``VALIDATION.md``
+(``tests/test_torch_learning_parity.py`` holds the two equal). Each run
+takes ``--seed s`` for every seed asked for; seed 1 is the JAX runs' seed.
+
+Every (run, seed) trains in a child process of its own, so that its peak
+memory is its own; ``--jobs N`` runs N children at once on the one card
+(the paths are host-bound), and each record says how many ran beside it
+(``concurrent``). The runs use CUDA unless ``--platform cpu`` is given;
+without a CUDA device the script exits non-zero. ``--iterations N`` cuts
+every run to N iterations (a rate measurement or a rehearsal); the words
+after ``--`` are appended to every run's argv (narrow widths on the CPU).
+
+From each run's ``logs/progress.txt`` a child writes, into ``--out``,
+``<run>_s<seed>_{eval,won,mean_step_reward}.csv`` (``steps,value``, as
+``scripts/harvest_r3.py`` writes them; ``won`` from the evaluations' score
+rate, ``mean_step_reward`` from the training records) and
+``<run>_s<seed>.json``: the card's name and power limit (``nvidia-smi``),
+the run's wall time and env-steps/s over all of it (evaluations and
+checkpoints included), each iteration's and each evaluation's seconds,
+peak ``torch.cuda.max_memory_allocated`` and peak RSS, the GAE kernel's
+launches an iteration, its max |err| against ``gae_reference`` on the
+run's own inputs at the first iteration (bound: 1e-5 of the largest
+return) with its warm time and byte bound there, and the run's values at
+the record's steps.
+
+The rule: a run **meets** its record when, at every step the record
+names, the median of the port's seeds is no lower than the record less a
+tolerance: 0.05 absolute for a score rate, 10 % of the record for
+HalfCheetah's ``mean_step_reward``. Higher than the record is fine: each
+record is one seed. A run whose seeds did not reach a record's step is
+``cut``. The script prints one row a run with each seed's value, the
+median, the record and the verdict, and exits non-zero if a child failed.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import importlib.util
+import json
+import os
+import resource
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+ACADEMY = ("--n_rollout_threads", "256", "--num_env_steps", "5000000", "--log_interval", "10",
+           "--eval_interval", "50")
+
+
+def _academy(scenario: str) -> tuple:
+    return ("--load_config", f"tuned_configs/football_jax/{scenario}/happo/config.json",
+            *ACADEMY)
+
+
+# name: argv of the JAX run, the GAE shape (T, b) in situ, the metric, and
+# the record as ((step, value), ...) with its source
+RUNS = {
+    "football_pass_and_shoot_with_keeper": dict(
+        argv=_academy("academy_pass_and_shoot_with_keeper"), shape=(200, 256), metric="won",
+        record=((2560000, 1.0), (4966400, 0.997)),
+        source="validation/r3/football_pass_and_shoot_with_keeper_won.csv"),
+    "football_run_pass_and_shoot_with_keeper": dict(
+        argv=_academy("academy_run_pass_and_shoot_with_keeper"), shape=(200, 256),
+        metric="won", record=((2560000, 0.995), (4966400, 1.0)),
+        source="validation/r3/football_run_pass_and_shoot_with_keeper_won.csv"),
+    "football_counterattack_easy": dict(
+        argv=_academy("academy_counterattack_easy"), shape=(200, 256), metric="won",
+        record=((2560000, 0.989), (4966400, 0.992)),
+        source="validation/r3/football_counterattack_easy_won.csv"),
+    "football_3v1_pixels": dict(
+        argv=("--algo", "happo", "--env", "football_jax", "--env_name",
+              "academy_3_vs_1_with_keeper", "--representation", "pixels", "--num_env_steps",
+              "3000000", "--n_rollout_threads", "128", "--episode_length", "128",
+              "--log_interval", "10", "--eval_interval", "30", "--eval_episodes", "64",
+              "--n_eval_rollout_threads", "64"),
+        shape=(128, 128), metric="won", record=((2998272, 0.934),),
+        source="validation/r3/football_3v1_pixels_won.csv"),
+    "halfcheetah_6x1_happo": dict(
+        argv=("--load_config", "tuned_configs/mamujoco_jax/HalfCheetah-v2-6x1/happo/config.json",
+              "--num_env_steps", "4000000"),
+        shape=(64, 1024), metric="mean_step_reward", record=((3997696, 4.0),),
+        source="VALIDATION.md:575 (round 1)"),
+}
+# the score rate's tolerance (absolute) and mean_step_reward's (of the record)
+RATE_TOL = 0.05
+REWARD_TOL = 0.10
+# in-situ GAE: max |kernel - plain| at most this much of the largest return
+GAE_REL_BOUND = 1e-5
+
+
+def tolerance(metric: str, record: float) -> float:
+    return RATE_TOL if metric == "won" else REWARD_TOL * abs(record)
+
+
+def verdict(metric: str, values: list, record: float) -> tuple:
+    """(median, "meets" or "misses") of the seeds' ``values`` against one
+    point of the record; ("cut") where no seed reached it."""
+    if not values:
+        return None, "cut"
+    med = statistics.median(values)
+    return med, "meets" if med >= record - tolerance(metric, record) else "misses"
+
+
+@functools.cache
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its card line, byte bound and warm
+    timing, so that the in-situ numbers are taken as its phases take them."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_parity", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+class Instruments:
+    """For the duration of a ``with``: each ``train_iteration``'s and each
+    evaluation's seconds, and on the first GAE call of the run the kernel
+    held against ``gae_reference`` on its own inputs (and, on CUDA, timed
+    warm; those launches are not counted)."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.iteration_s, self.eval_s, self.in_situ = [], [], None
+
+    def __enter__(self):
+        import torch
+
+        from harl_tpu_torch.ops import gae_kernels as K
+        from harl_tpu_torch.runners import on_policy
+
+        self.saved = [(on_policy, "compute_gae", on_policy.compute_gae),
+                      (on_policy.OnPolicyRunner, "train_iteration",
+                       on_policy.OnPolicyRunner.train_iteration),
+                      (on_policy.OnPolicyRunner, "evaluate", on_policy.OnPolicyRunner.evaluate)]
+        (_, _, compute_gae), (_, _, train_iteration), (_, _, evaluate) = self.saved
+
+        def sync():
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+
+        def timed(fn, into):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                sync()
+                into.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def checked_gae(rewards, values, masks, bad, gamma, lam, impl=None):
+            out = compute_gae(rewards, values, masks, bad, gamma, lam, impl)
+            if self.in_situ is None and impl is None:
+                args = (rewards.contiguous(), values.contiguous(), masks.contiguous(),
+                        None if bad is None else bad.contiguous(), gamma, lam)
+                ref = K.gae_reference(*args)
+                T, b = rewards.shape[0], rewards.numel() // rewards.shape[0]
+                bound, by = _chip_smoke().bound_ms("gae", T, b)
+                self.in_situ = dict(T=T, b=b, max_abs_err=(out - ref).abs().max().item(),
+                                    max_abs_return=ref.abs().max().item(),
+                                    bound_ms=bound, bound_by=by, ms=None)
+                if self.device == "cuda":
+                    before = K.gae.launches
+                    self.in_situ["ms"] = _chip_smoke().time_warm(lambda: K.gae(*args), 200)[0]
+                    K.gae.launches = before
+            return out
+
+        on_policy.compute_gae = checked_gae
+        on_policy.OnPolicyRunner.train_iteration = timed(train_iteration, self.iteration_s)
+        on_policy.OnPolicyRunner.evaluate = timed(evaluate, self.eval_s)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self.saved:
+            setattr(owner, name, orig)
+
+
+def read_curves(run_dir: str) -> dict:
+    """{"eval", "won", "mean_step_reward"}: [(steps, value), ...] from a
+    run's progress.txt (the evaluations' return and score rate, the
+    training records' mean step reward)."""
+    curves = {"eval": [], "won": [], "mean_step_reward": []}
+    with open(os.path.join(run_dir, "logs", "progress.txt")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "eval_return" in rec:
+                curves["eval"].append((rec["steps"], rec["eval_return"]))
+                if "eval_win_rate" in rec:
+                    curves["won"].append((rec["steps"], rec["eval_win_rate"]))
+            elif "mean_step_reward" in rec:
+                curves["mean_step_reward"].append((rec["steps"], rec["mean_step_reward"]))
+    return curves
+
+
+def run_argv(name: str, seed: int, platform: str, iterations: int, extra: list,
+             log_dir: str) -> tuple:
+    """(the argv of one run, its resolved train section): the JAX run's
+    argv, the seed, the device, the words of ``extra`` and, with
+    ``iterations``, a budget of that many."""
+    from harl_tpu_torch import train
+
+    argv = [*RUNS[name]["argv"], "--seed", str(seed), "--exp_name", f"parity_s{seed}",
+            "--log_dir", log_dir, *(["--platform", "cpu"] if platform == "cpu" else []), *extra]
+    tr = train.resolve_args(argv)[1]["train"]
+    if iterations:
+        tr["num_env_steps"] = iterations * tr["episode_length"] * tr["n_rollout_threads"]
+        argv += ["--num_env_steps", str(tr["num_env_steps"])]
+    return argv, tr
+
+
+def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
+            iterations: int = 0, extra: tuple = (), concurrent: int = 1) -> dict:
+    """Train one (run, seed) in this process, write its CSVs and JSON into
+    ``out_dir`` and return the record; raises after writing it if the GAE
+    kernel was not launched once an iteration or its in-situ error is out
+    of bound."""
+    import torch
+
+    from harl_tpu_torch import train
+    from harl_tpu_torch.ops import gae_kernels as K
+
+    if platform != "cpu" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the parity runs need one (or --platform cpu)")
+    card = "cpu" if platform == "cpu" else _chip_smoke().card_line()
+    argv, tr = run_argv(name, seed, platform, iterations, list(extra), log_dir)
+    T, n = tr["episode_length"], tr["n_rollout_threads"]
+    budget = max(tr["num_env_steps"] // (T * n), 1) * T * n
+    if platform != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = K.gae.launches
+    t0 = time.perf_counter()
+    with Instruments(platform) as ins:
+        run_dir = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = K.gae.launches - launches0
+    iters = len(ins.iteration_s)
+    curves = read_curves(run_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.join(out_dir, f"{name}_s{seed}")
+    for key, series in curves.items():
+        if series:
+            with open(f"{stem}_{key}.csv", "w") as f:
+                f.write("".join(f"{s},{v}\n" for s, v in series))
+    spec = RUNS[name]
+    values = dict(curves[spec["metric"]])
+    rec = dict(
+        run=name, seed=seed, argv=argv, card=card, platform=platform, concurrent=concurrent,
+        device=torch.cuda.get_device_name(0) if platform != "cpu" else "cpu",
+        env_steps=budget, iterations=iters, wall_s=wall, env_steps_per_s=budget / wall,
+        iteration_s=ins.iteration_s, eval_s=ins.eval_s,
+        peak_cuda_bytes=torch.cuda.max_memory_allocated() if platform != "cpu" else None,
+        peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        gae_launches=launches, gae_launches_per_iteration=launches / max(iters, 1),
+        gae_in_situ=ins.in_situ, metric=spec["metric"],
+        at_record={str(step): values.get(step) for step, _ in spec["record"]},
+        run_dir=run_dir)
+    with open(f"{stem}.json", "w") as f:
+        json.dump(rec, f, indent=1)
+    situ = ins.in_situ
+    print(f"{name} seed {seed}: {iters} iterations, {budget} env-steps in {wall:.1f} s "
+          f"({budget / wall:.1f} env-steps/s, {concurrent} run(s) at once), evals "
+          f"{[round(s, 2) for s in ins.eval_s]} s; gae launches {launches}; in situ "
+          f"T={situ['T']}, b={situ['b']}: max |err| {situ['max_abs_err']:.3g} of returns up to "
+          f"{situ['max_abs_return']:.3g}, {situ['ms']} ms warm; at the record "
+          f"{rec['at_record']} on {card}", flush=True)
+    if platform != "cpu" and launches != iters:
+        raise AssertionError(f"{name} seed {seed}: gae launched {launches} times in {iters} "
+                             "iterations")
+    if situ["max_abs_err"] > GAE_REL_BOUND * situ["max_abs_return"]:
+        raise AssertionError(f"{name} seed {seed}: in-situ gae error {situ['max_abs_err']} "
+                             f"beyond {GAE_REL_BOUND} of {situ['max_abs_return']}")
+    if (situ["T"], situ["b"]) != (T, n):
+        raise AssertionError(f"{name}: gae in situ at T={situ['T']}, b={situ['b']}, "
+                             f"expected T={T}, b={n}")
+    return rec
+
+
+def load_records(out_dir: str, names) -> dict:
+    """{run: [its seeds' JSON records, by seed]} from ``out_dir``."""
+    found = {}
+    for name in names:
+        recs = []
+        for path in sorted(Path(out_dir).glob(f"{name}_s*.json")):
+            with open(path) as f:
+                recs.append(json.load(f))
+        if recs:
+            found[name] = sorted(recs, key=lambda r: r["seed"])
+    return found
+
+
+def table(out_dir: str, names) -> tuple:
+    """(the markdown table of the runs found in ``out_dir``, {run:
+    verdict}): a row a run and record point, and a run's verdict "meets"
+    only where every point meets."""
+    lines = ["| Run | Step | Port, by seed | Median | JAX record | Tolerance | Verdict | "
+             "env-steps/s, by seed (runs at once) | Wall s, by seed | GAE launches an "
+             "iteration; in-situ max \\|err\\| / largest return | Card |",
+             "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
+    verdicts = {}
+    for name, recs in load_records(out_dir, names).items():
+        spec = RUNS[name]
+        seen = []
+        for step, record in spec["record"]:
+            vals = [r["at_record"].get(str(step)) for r in recs]
+            med, word = verdict(spec["metric"], [v for v in vals if v is not None], record)
+            seen.append(word)
+            by_seed = ", ".join(f"s{r['seed']} {'—' if v is None else f'{v:.4g}'}"
+                                for r, v in zip(recs, vals))
+            rates = ", ".join(f"{r['env_steps_per_s']:.1f}" for r in recs)
+            walls = ", ".join(f"{r['wall_s']:.1f}" for r in recs)
+            gae = ", ".join(f"{r['gae_launches_per_iteration']:g}; "
+                            f"{r['gae_in_situ']['max_abs_err']:.2g} / "
+                            f"{r['gae_in_situ']['max_abs_return']:.3g}" for r in recs)
+            cards = "; ".join(sorted({r["card"] for r in recs}))
+            lines.append(
+                f"| {name} | {step:,} | {by_seed} | {'—' if med is None else f'{med:.4g}'} | "
+                f"{spec['metric']} {record} ({spec['source']}) | "
+                f"{tolerance(spec['metric'], record):.3g} | {word} | {rates} "
+                f"({max(r['concurrent'] for r in recs)}) | {walls} | {gae} | {cards} |")
+        verdicts[name] = ("cut" if "cut" in seen else
+                          "misses" if "misses" in seen else "meets")
+    return "\n".join(lines), verdicts
+
+
+def run_children(pairs: list, args, extra: list) -> list:
+    """Run each (run, seed) as a child process, ``args.jobs`` at once, its
+    output in ``<log_dir>/<run>_s<seed>.log``; returns the pairs that
+    failed."""
+    os.makedirs(args.log_dir, exist_ok=True)
+    pending, running, failed = list(pairs), [], []
+    while pending or running:
+        while pending and len(running) < args.jobs:
+            name, seed = pending.pop(0)
+            log = open(os.path.join(args.log_dir, f"{name}_s{seed}.log"), "w")
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", "--runs", name,
+                   "--seeds", str(seed), "--platform", args.platform, "--out", args.out,
+                   "--log_dir", args.log_dir, "--iterations", str(args.iterations),
+                   "--jobs", str(min(args.jobs, len(pairs))), "--", *extra]
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+            running.append((proc, log, name, seed))
+            print(f"started {name} seed {seed}", flush=True)
+        time.sleep(1.0)
+        for item in list(running):
+            proc, log, name, seed = item
+            if proc.poll() is None:
+                continue
+            running.remove(item)
+            log.close()
+            with open(log.name) as f:
+                tail = f.read().splitlines()[-1 if proc.returncode == 0 else -30:]
+            print(f"{name} seed {seed} exited {proc.returncode}: " + "\n".join(tail),
+                  flush=True)
+            if proc.returncode != 0:
+                failed.append((name, seed))
+    return failed
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    extra = []
+    if "--" in argv:
+        extra = argv[argv.index("--") + 1:]
+        argv = argv[:argv.index("--")]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", default=",".join(RUNS))
+    ap.add_argument("--seeds", default="1,2,3")
+    ap.add_argument("--jobs", type=int, default=1, help="children at once")
+    ap.add_argument("--iterations", type=int, default=0, help="cut each run to N iterations")
+    ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default="validation_torch")
+    ap.add_argument("--log_dir", default="results/parity")
+    ap.add_argument("--table", action="store_true", help="print the table of --out only")
+    ap.add_argument("--child", action="store_true", help="one (run, seed) here (internal)")
+    args = ap.parse_args(argv)
+    names = args.runs.split(",")
+    unknown = [n for n in names if n not in RUNS]
+    if unknown:
+        ap.error(f"unknown runs {unknown}: {list(RUNS)}")
+    seeds = [int(s) for s in args.seeds.split(",")]
+    if args.child:
+        run_one(names[0], seeds[0], args.platform, args.out, args.log_dir, args.iterations,
+                extra, args.jobs)
+        return 0
+    failed = []
+    if not args.table:
+        import torch
+
+        if args.platform != "cpu":
+            if not torch.cuda.is_available():
+                print("no CUDA device: the parity runs need one (or --platform cpu)",
+                      file=sys.stderr)
+                return 1
+            from harl_tpu_torch.ops import _build
+
+            _build.build("gae")   # once, before the children load it
+            print(_chip_smoke().card_line(), flush=True)
+        failed = run_children([(n, s) for n in names for s in seeds], args, extra)
+    text, verdicts = table(args.out, names)
+    print(text)
+    print(json.dumps({"verdicts": verdicts, "failed": failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

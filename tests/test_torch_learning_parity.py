@@ -1,0 +1,214 @@
+"""``scripts/torch_learning_parity.py`` on the CPU: each run of its table
+resolves to the very experiment of the JAX record (configs and lr
+schedules equal to the JAX CLI's), its records equal the committed JAX
+curves, the meets/misses rule, and the script end to end at a tiny size."""
+import argparse
+import copy
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from harl_tpu import train as jtrain
+from harl_tpu.algos import common as jcommon
+from harl_tpu.runners.on_policy import OnPolicyRunner as JRunner
+from harl_tpu.utils import config_tools as jconfig
+from harl_tpu_torch import train
+from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+
+ROOT = Path(__file__).resolve().parent.parent
+SCRIPT = ROOT / "scripts" / "torch_learning_parity.py"
+_spec = importlib.util.spec_from_file_location("torch_learning_parity", SCRIPT)
+parity = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(parity)
+
+# tiny widths for the CPU: one epoch, 4 envs x 20 steps, a short eval
+TINY = ["--n_rollout_threads", "4", "--episode_length", "20", "--hidden_sizes", "[8, 8]",
+        "--n_eval_rollout_threads", "2", "--eval_episodes", "2", "--episode_limit", "30",
+        "--ppo_epoch", "1", "--critic_epoch", "1"]
+
+
+def jax_resolve(argv):
+    """(main args, algo args, env args) as ``harl_tpu/train.py:34-63``
+    resolves a command line."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--algo", default="happo")
+    parser.add_argument("--env", default="pettingzoo_mpe")
+    parser.add_argument("--exp_name", default="installtest")
+    parser.add_argument("--load_config", default="")
+    args, unparsed = parser.parse_known_args(argv)
+    args = vars(args)
+    if args["load_config"]:
+        saved_main, algo_args, env_args = jconfig.load_config(args["load_config"])
+        args["algo"] = saved_main.get("algo", args["algo"])
+        args["env"] = saved_main.get("env", args["env"])
+    else:
+        algo_args, env_args = jconfig.get_defaults_yaml_args(args["algo"], args["env"])
+    jconfig.update_args(jtrain._parse_unknown(unparsed), algo_args, env_args)
+    return args, algo_args, env_args
+
+
+def _argv(name, seed=2):
+    """The script's argv of a run, with the config paths from the root."""
+    argv = [str(ROOT / a) if a.startswith("tuned_configs/") else a
+            for a in parity.RUNS[name]["argv"]]
+    return argv + ["--seed", str(seed), "--exp_name", f"parity_s{seed}"]
+
+
+@pytest.mark.parametrize("name", list(parity.RUNS))
+def test_runs_resolve_to_the_jax_experiment(name):
+    """(a) The port's CLI resolves each run's argv to the configs the JAX
+    CLI resolves; the seed is the one asked for, and the widths and
+    budget are the record's."""
+    got = train.resolve_args(_argv(name))
+    want = jax_resolve(_argv(name))
+    assert got == want
+    tr = got[1]["train"]
+    assert got[1]["seed"] == {"seed_specify": True, "seed": 2}
+    T, n = parity.RUNS[name]["shape"]
+    assert (tr["episode_length"], tr["n_rollout_threads"]) == (T, n)
+    last = max(step for step, _ in parity.RUNS[name]["record"])
+    assert tr["num_env_steps"] // (T * n) * (T * n) >= last
+
+
+def _jax_lrs(tx, eps: float, steps: int) -> np.ndarray:
+    """The lr of each of ``steps`` optimizer steps of an optax chain of
+    clip and Adam: its steps under a constant gradient over those of the
+    same Adam at lr 1 (the schedule scales Adam's direction last)."""
+    unit = jcommon.make_optimizer(1.0, eps)
+    p = jnp.zeros((1,))
+
+    def body(sts, _):
+        u, st = tx.update(jnp.ones((1,)), sts[0], p)
+        v, st1 = unit.update(jnp.ones((1,)), sts[1], p)
+        return (st, st1), u[0] / v[0]
+
+    _, lrs = jax.jit(lambda sts: jax.lax.scan(body, sts, None, length=steps))(
+        (tx.init(p), unit.init(p)))
+    return np.asarray(lrs, np.float64)
+
+
+def _port_lrs(opt, steps: int) -> np.ndarray:
+    base = opt.adam.param_groups[0]["lr"]
+    return np.array([base if opt.lr_schedule is None else opt.lr_schedule(c)
+                     for c in range(steps)])
+
+
+@pytest.mark.parametrize("name", list(parity.RUNS))
+def test_lr_schedules_equal_over_the_budget(name):
+    """(d) Each runner's actor and critic lr at every optimizer step of the
+    run's whole budget, the port's against the JAX runner's optax chain:
+    two of the tuned football configs decay linearly to lr/E at the last
+    iteration."""
+    args, algo_args, env_args = train.resolve_args(_argv(name))
+    runner = OnPolicyRunner(args, copy.deepcopy(algo_args), dict(env_args), device="cpu")
+    jrunner = JRunner(args, copy.deepcopy(algo_args), dict(env_args))
+    assert runner.episodes == jrunner.episodes
+    state = runner.init_state(1)
+    al, md = algo_args["algo"], algo_args["model"]
+    decay = algo_args["train"]["use_linear_lr_decay"]
+    assert decay == (name in ("football_pass_and_shoot_with_keeper",
+                              "football_counterattack_easy"))
+    for opt, tx, updates, lr in (
+            (state.actors[0].opt, jrunner.actors[0].tx,
+             al["ppo_epoch"] * al["actor_num_mini_batch"], md["lr"]),
+            (state.critic.opt, jrunner.critic.tx,
+             al["critic_epoch"] * al["critic_num_mini_batch"], md["critic_lr"])):
+        steps = runner.episodes * updates
+        got, want = _port_lrs(opt, steps), _jax_lrs(tx, md["opti_eps"], steps)
+        # JAX computes lr·(1 − it/E) in float32: 1 − it/E carries the
+        # rounding of it/E, ~6e-8 of lr (an iteration off would be lr/E)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=2e-7 * lr)
+        if decay:   # one value an iteration, lr·(1 − e/E)
+            assert got[-1] == pytest.approx(lr / runner.episodes, rel=1e-12)
+            assert len(set(got[:updates])) == 1 and got[updates] < got[0]
+
+
+@pytest.mark.parametrize("name", list(parity.RUNS))
+def test_records_are_the_committed_jax_results(name):
+    """Each record of the run table is what the JAX run committed: its
+    score-rate curve, or the round-1 HalfCheetah reading."""
+    spec = parity.RUNS[name]
+    if spec["metric"] == "won":
+        with open(ROOT / spec["source"]) as f:
+            curve = dict((int(s), float(v)) for s, v in (line.split(",") for line in f))
+        for step, value in spec["record"]:
+            assert curve[step] == value
+    else:
+        text = (ROOT / "VALIDATION.md").read_text().splitlines()
+        line = text[int(spec["source"].split(":")[1].split()[0]) - 1]
+        assert "HalfCheetah-6x1" in line and "HAPPO" in line and "**+4.0**" in line
+        assert spec["record"] == ((4000000 // (64 * 1024) * 64 * 1024, 4.0),)
+
+
+@pytest.mark.parametrize("metric,values,record,want", [
+    ("won", [0.99, 1.0, 0.97], 0.997, "meets"),            # within 0.05
+    ("won", [1.0, 1.0, 0.98], 0.934, "meets"),             # better than the record
+    ("won", [0.937, 0.937, 0.99], 0.997, "misses"),        # the median 0.06 under
+    ("won", [0.947, 0.5, 1.0], 0.997, "meets"),            # the median at the edge
+    ("mean_step_reward", [4.5, 5.2, 3.0], 4.0, "meets"),   # better
+    ("mean_step_reward", [3.65, 3.7, 3.61], 4.0, "meets"),  # within 10 %
+    ("mean_step_reward", [3.5, 3.59, 4.4], 4.0, "misses"),  # 3.59 < 3.6
+    ("won", [], 0.9, "cut")])
+def test_the_rule(metric, values, record, want):
+    """(c) A run meets its record where the median of its seeds is no lower
+    than the record less 0.05 (a score rate) or 10 % of it (HalfCheetah's
+    mean step reward)."""
+    med, word = parity.verdict(metric, values, record)
+    assert word == want
+    if values:
+        assert med == sorted(values)[1]
+
+
+def test_table_verdict_needs_every_point(tmp_path):
+    """A run's verdict in the table: "meets" only where every point of the
+    record meets, and each seed's value printed in its row."""
+    name = "football_pass_and_shoot_with_keeper"
+    for seed, (early, late) in zip((1, 2, 3), ((0.9, 1.0), (0.91, 0.99), (0.99, 1.0))):
+        rec = dict(seed=seed, at_record={"2560000": early, "4966400": late},
+                   env_steps_per_s=1.0, wall_s=1.0, concurrent=3, card="x",
+                   gae_launches_per_iteration=1.0,
+                   gae_in_situ=dict(max_abs_err=0.0, max_abs_return=1.0))
+        (tmp_path / f"{name}_s{seed}.json").write_text(json.dumps(rec))
+    text, verdicts = parity.table(str(tmp_path), [name, "halfcheetah_6x1_happo"])
+    assert verdicts == {name: "misses"}          # the median 0.91 at 2.56M
+    rows = [r for r in text.splitlines() if r.startswith(f"| {name}")]
+    assert len(rows) == 2 and "s2 0.91" in rows[0] and "| misses |" in rows[0]
+    assert "| meets |" in rows[1]
+
+
+def test_script_end_to_end_on_the_cpu(tmp_path):
+    """(b) The script with ``--platform cpu`` on a football run and the
+    HalfCheetah run, cut to 2 iterations at tiny widths with one small
+    eval: the curves and the JSON of each, and a table row each."""
+    runs = ["football_pass_and_shoot_with_keeper", "halfcheetah_6x1_happo"]
+    out = subprocess.run(
+        [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", ",".join(runs),
+         "--seeds", "1", "--jobs", "2", "--iterations", "2", "--out", str(tmp_path / "out"),
+         "--log_dir", str(tmp_path / "runs"), "--", *TINY],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    for name in runs:
+        rec = json.loads((tmp_path / "out" / f"{name}_s1.json").read_text())
+        assert rec["iterations"] == 2 and rec["env_steps"] == 160 and rec["card"] == "cpu"
+        assert rec["gae_in_situ"]["T"] == 20 and rec["gae_in_situ"]["b"] == 4
+        assert rec["gae_in_situ"]["max_abs_err"] == 0.0   # the plain version on the CPU
+        assert len(rec["eval_s"]) == 1 and rec["peak_rss_bytes"] > 0
+        assert "--seed" in rec["argv"] and rec["argv"][rec["argv"].index("--seed") + 1] == "1"
+        for key in ("eval", "mean_step_reward") + (("won",) if "football" in name else ()):
+            lines = (tmp_path / "out" / f"{name}_s1_{key}.csv").read_text().splitlines()
+            steps = [int(line.split(",")[0]) for line in lines]
+            assert steps and steps[-1] == 160
+            assert all(np.isfinite(float(line.split(",")[1])) for line in lines)
+        assert sum(line.startswith(f"| {name} |") for line in out.stdout.splitlines()) == \
+            len(parity.RUNS[name]["record"])
+    assert json.loads(out.stdout.splitlines()[-1]) == {
+        "verdicts": {name: "cut" for name in runs}, "failed": []}

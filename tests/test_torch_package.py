@@ -85,6 +85,34 @@ def test_slice9_modules_import_without_jax():
         assert f"harl_tpu_torch.{name}" in names, names
 
 
+def test_learning_parity_script_and_chip_smoke_import_without_jax():
+    """``scripts/torch_learning_parity.py``, its run table resolved through
+    the port's CLI, and ``chip_smoke.py`` (whose timing it uses) import
+    with JAX, flax, optax and harl_tpu made unimportable."""
+    code = textwrap.dedent("""
+        import importlib.util, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "harl_tpu"):
+            sys.modules[name] = None
+        spec = importlib.util.spec_from_file_location(
+            "parity", "scripts/torch_learning_parity.py")
+        parity = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(parity)
+        parity._chip_smoke()
+        from harl_tpu_torch import train
+        for name in parity.RUNS:
+            train.resolve_args(list(parity.RUNS[name]["argv"]))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "harl_tpu")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print(len(parity.RUNS))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["5"]
+
+
 @pytest.mark.parametrize("env,env_args", [
     ("football_jax", {}), ("lag_jax", {}),
     ("mamujoco_jax", {"scenario": "manyagent_swimmer"}),
