@@ -6,7 +6,7 @@
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
 run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-20, 21, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
+20, 21, 22, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
 session leaves the process slower, so every timed run comes before the
 first one.
 
@@ -179,6 +179,20 @@ first one.
    evaluation at the last: the GAE kernel launched once an iteration, its
    error on the run's own inputs (T=200, b=256) within 1e-5 of the largest
    return, the score-rate curve and the run's record written.
+22. several cards, on this one: ``scripts/torch_multicard.py``'s legs
+   (its ``smoke_phase``), (a) on one rank over a world-1 NCCL group: leg 1,
+   the four program shapes of the JAX package's ``dryrun_multichip`` at B=2
+   (HAPPO MLP and FP GRU, HASAC's warmup, collect and train, MAPPO
+   share_param), held as phase 19 (b) holds its steps; leg 3, the weak
+   scaling run at a rank's widths cut to one warm-up and one timed step
+   (HASAC its warmup and one block), in one threads mode and not
+   profiled; leg 4, the all-reduce latencies of one element, a HalfCheetah
+   actor's gradients and a HASAC critic's (median of 100); (b) on 4 gloo
+   ranks sharing the card: leg 1 at B=8 and leg 2 cut to one iteration of
+   HalfCheetah (1024 envs a rank) and of SMACLite FP (64 a rank), held as
+   phase 19 (b), GAE held against its plain version on each rank's columns
+   (T=32, b=1024; T=70, b=320). NCCL between cards is the script's own
+   run on four.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -197,6 +211,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -2063,25 +2078,54 @@ DP_RTOL, DP_ATOL = 1e-5, 1e-6
 # step (8.3e-7 read for HalfCheetah, 2.0e-6 for SMACLite on the H100),
 # while one Adam step moves it by up to lr (5e-4)
 DP_PARAM_ATOL = 1e-5
-DP_WORKLOADS = ("halfcheetah", "smaclite_fp", "hasac")
-# each workload's steps, every one from the one-rank run's state before it:
-# iterations; HASAC's two blocks after its warmup and a first collect, cut
-# into a train block, a collect and a train block
-DP_STEPS = {"halfcheetah": ("iteration",) * 2, "smaclite_fp": ("iteration",),
-            "hasac": ("train", "collect", "train")}
 
 
-def dp_runner(label: str):
-    """Phase 19's workloads at full width on the card: HAPPO HalfCheetah-6x1
-    (4096 envs x 32 steps, [64, 64]); HAPPO SMACLite 5m_vs_6m FP GRU at the
-    bench's widths (256 envs x 70 steps); HASAC HalfCheetah-6x1 at the
-    bench's widths (256 envs, blocks of 50, batch 1000, buffer 200,000)."""
-    if label == "halfcheetah":
-        return make_runner(MAIN["n_envs"], MAIN["episode_length"], MAIN["hidden"], "cuda")
-    if label == "smaclite_fp":
-        return make_smaclite_runner(SMAC["n_envs"], SMAC["episode_length"], SMAC["hidden"],
-                                    "cuda")
-    return make_off_policy_runner("hasac", "cuda")
+class DPWorkload(NamedTuple):
+    """A data-parallel workload: ``make(device)`` builds its runner (a
+    module-level function or a ``functools.partial`` of one, so that it
+    pickles to a spawned rank); ``steps``, the kinds of the steps held
+    against the one-rank run, each from that run's state before it
+    ("iteration", "warmup", "collect" or "train"); ``pre``, the kinds the
+    one-rank run takes before its first step."""
+    make: Callable
+    steps: tuple
+    pre: tuple = ()
+
+    @property
+    def off_policy(self) -> bool:
+        return "iteration" not in self.steps
+
+
+# Phase 19's workloads at full width on the card: HAPPO HalfCheetah-6x1
+# (4096 envs x 32 steps, [64, 64]), 2 iterations; HAPPO SMACLite 5m_vs_6m FP
+# GRU at the bench's widths (256 envs x 70 steps), 1 iteration; HASAC
+# HalfCheetah-6x1 at the bench's widths (256 envs, blocks of 50, batch 1000,
+# buffer 200,000) after its warmup and a first collect, cut into a train
+# block, a collect and a train block
+DP_WORKLOADS = {
+    "halfcheetah": DPWorkload(functools.partial(make_runner, MAIN["n_envs"],
+                                                MAIN["episode_length"], MAIN["hidden"]),
+                              ("iteration",) * 2),
+    "smaclite_fp": DPWorkload(functools.partial(make_smaclite_runner, SMAC["n_envs"],
+                                                SMAC["episode_length"], SMAC["hidden"]),
+                              ("iteration",)),
+    "hasac": DPWorkload(functools.partial(make_off_policy_runner, "hasac"),
+                        ("train", "collect", "train"), ("warmup", "collect")),
+}
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s queue: a CUDA device's; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_step(runner, state, kind: str) -> tuple:
+    """One step of ``kind`` from ``state``: (state, its metrics)."""
+    if kind == "warmup":
+        return runner.warmup_block(state), {}
+    return getattr(runner, {"iteration": "train_iteration", "train": "train_block",
+                            "collect": "collect_block"}[kind])(state)
 
 
 class FirstGrads:
@@ -2150,44 +2194,46 @@ class UpdateInputs:
         OnPolicyRunner.update_phase = self.orig
 
 
-def dp_drive(label: str, mesh, card: str, states: list, floor: dict = None) -> dict:
-    """One workload on this process, on its rank's env columns under
-    ``mesh`` (none: the one-rank run), its ``DP_STEPS``. Every step starts
-    from the one-rank run's state before it, through the checkpoint paths
-    ``states``: the one-rank run saves it there, every rank resumes from
-    it. HASAC's first step follows its warmup and a collect. After each
-    step: the state's replicated tensors (networks, moments, ValueNorm, α;
-    on the CPU), the replicas' mismatch over the ranks, seconds, GAE
-    launches and the milliseconds in collectives; every optimizer's
+def dp_drive(label: str, mesh, card: str, states: list, floor: dict = None,
+             workload: DPWorkload = None, device="cuda") -> dict:
+    """One workload (``DP_WORKLOADS[label]`` unless ``workload`` is given)
+    on this process, on its rank's env columns under ``mesh`` (none: the
+    one-rank run on ``device``), its ``steps``. Every step starts from the
+    one-rank run's state before it, through the checkpoint paths
+    ``states``: the one-rank run, after its ``pre`` steps, saves it there,
+    every rank resumes from it. After each step: the state's replicated
+    tensors (networks, moments, ValueNorm, α; on the CPU), the replicas'
+    mismatch over the ranks, the host's seconds, GAE launches, the
+    all-reduces and their milliseconds (CUDA events); every optimizer's
     first-step gradients (``FirstGrads``); a train block's first critic
-    loss (this rank's share); a collect's inserted rows (global rows under
-    a mesh); an iteration's update inputs (``UpdateInputs``, this rank's
-    columns). On-policy, then one more rollout on whose GAE inputs (this
-    rank's columns) the kernel is held against its plain version and timed
-    (``gae_in_situ``)."""
+    loss (this rank's share); a warmup's or collect's inserted rows (global
+    rows under a mesh); an iteration's update inputs (``UpdateInputs``,
+    this rank's columns). On-policy with ``floor``, then one more rollout
+    on whose GAE inputs (this rank's columns) the kernel is held against
+    its plain version and timed (``gae_in_situ``)."""
     from harl_tpu_torch.buffers.off_policy import ReplayBuffer
     from harl_tpu_torch.runners import common
     from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 
-    runner = dp_runner(label)
-    off = label == "hasac"
+    w = workload or DP_WORKLOADS[label]
+    runner = w.make(device if mesh is None else mesh.device)
     runner.use_mesh(mesh)
-    mesh = runner.mesh
+    mesh, dev = runner.mesh, runner.device
     if mesh.grouped:
         # one untimed all-reduce first: NCCL sets up its communicator there
-        mesh.all_reduce_sum([torch.zeros(1, device="cuda")])
+        mesh.all_reduce_sum([torch.zeros(1, device=dev)])
         mesh.time_collectives = True
         mesh.collective_ms()
     state = runner.init_state(0)
-    if off and not mesh.grouped:
-        state = runner.warmup_block(state)
-        state, _ = runner.collect_block(state)
-    torch.cuda.synchronize()
+    if not mesh.grouped:
+        for kind in w.pre:
+            state, _ = dp_step(runner, state, kind)
+    sync(dev)
     zero_launches()
     steps = []
-    for path, kind in zip(states, DP_STEPS[label]):
+    for path, kind in zip(states, w.steps):
         if mesh.grouped:
-            state = runner.load_checkpoint(state, torch.load(path, map_location=runner.device,
+            state = runner.load_checkpoint(state, torch.load(path, map_location=dev,
                                                              weights_only=True))
         else:
             torch.save(runner.checkpoint(state), path)
@@ -2195,26 +2241,24 @@ def dp_drive(label: str, mesh, card: str, states: list, floor: dict = None) -> d
         first, updates = FirstGrads(), Spy(OffPolicyRunner, "update", sync=False,
                                            keep=lambda loss: float(loss))
         inserts, inputs = Spy(ReplayBuffer, "insert", sync=False), UpdateInputs()
-        torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
         with first, updates, inserts, inputs:
-            step = {"iteration": "train_iteration", "train": "train_block",
-                    "collect": "collect_block"}[kind]
-            state, m = getattr(runner, step)(state)
-        torch.cuda.synchronize()
+            state, m = dp_step(runner, state, kind)
+        sync(dev)
         sec = time.perf_counter() - t0
         tensors = common.replica_tensors(state, buffer=False)
         steps.append(dict(
-            seconds=sec, launches=read_launches(),
+            kind=kind, seconds=sec, launches=read_launches(),
             tensors=[t.detach().cpu().clone() for t in tensors], names=replica_names(state),
             metrics={k: float(v) for k, v in m.items() if torch.is_tensor(v) and v.dim() == 0},
             collective_ms=mesh.collective_ms(), collectives=mesh.calls - calls,
             mismatch=mesh.replica_mismatch(common.replica_tensors(state)),
             first_grads=first.grads, first_loss=updates.calls[0][3] if updates.calls else None,
             inserts=inserted_rows(inserts), update_inputs=inputs.calls))
-    out = dict(steps=steps, env_steps=(runner.train_interval if off else runner.episode_length)
-               * runner.n_envs)
-    if not off and floor is not None:
+    out = dict(steps=steps, env_steps=(runner.train_interval if w.off_policy
+                                       else runner.episode_length) * runner.n_envs)
+    if not w.off_policy and floor is not None:
         T, n = runner.episode_length, runner.n_envs
         shape = (T, n, runner.n_agents, 1) if runner.fp else (T, n, 1)
         out["gae"] = gae_in_situ(f"{label} rank {mesh.rank}", runner, state, shape, floor,
@@ -2222,27 +2266,29 @@ def dp_drive(label: str, mesh, card: str, states: list, floor: dict = None) -> d
     return out
 
 
-def dp_rank(mesh, card: str, floor: dict, states: dict) -> dict:
-    """Phase 19 (b) on one spawned rank: every workload in turn, each step
-    from the one-rank run's state before it (``states`` by workload)."""
-    return {label: dp_drive(label, mesh, card, states[label], floor)
-            for label in DP_WORKLOADS}
+def dp_rank(mesh, card: str, floor: dict, states: dict, workloads: dict = None) -> dict:
+    """Phase 19 (b) on one spawned rank: every workload of ``workloads``
+    (``DP_WORKLOADS``) in turn, each step from the one-rank run's state
+    before it (``states`` by workload)."""
+    return {label: dp_drive(label, mesh, card, states[label], floor, w)
+            for label, w in (workloads or DP_WORKLOADS).items()}
 
 
-def replayed_collect(rank: int, world: int, path: str) -> list:
-    """Rank ``rank`` of ``world``'s HASAC collect block replayed in this
-    process without a process group, from the checkpoint at ``path``: its
-    env columns, its cut of every global draw, the rows it inserts (its
-    own only: nothing gathers them)."""
+def replayed_collect(rank: int, world: int, path: str, workload: DPWorkload, device,
+                     kind: str = "collect") -> list:
+    """Rank ``rank`` of ``world``'s warmup or collect block (``kind``)
+    replayed in this process without a process group, from the checkpoint
+    at ``path``: its env columns, its cut of every global draw, the rows it
+    inserts (its own only: nothing gathers them)."""
     from harl_tpu_torch.buffers.off_policy import ReplayBuffer
     from harl_tpu_torch.parallel.mesh import Mesh
 
-    runner = dp_runner("hasac")
-    runner.use_mesh(Mesh(rank, world, "cuda", grouped=False))
+    runner = workload.make(device)
+    runner.use_mesh(Mesh(rank, world, device, grouped=False))
     state = runner.load_checkpoint(runner.init_state(0), torch.load(
         path, map_location=runner.device, weights_only=True))
     with Spy(ReplayBuffer, "insert", sync=False) as inserts:
-        runner.collect_block(state)
+        dp_step(runner, state, kind)
     return inserted_rows(inserts)
 
 
@@ -2259,7 +2305,7 @@ def join_env_axis(parts: list):
     return (map_tensors(lambda _: next(joined), data[0]), *rest)
 
 
-def replayed_update(label: str, path: str, calls: list) -> dict:
+def replayed_update(path: str, calls: list, workload: DPWorkload, device) -> dict:
     """The one-rank run's update of the very rows the ranks collected: from
     the one-rank state at ``path``, ``update_phase`` on the ranks' inputs
     (their ``UpdateInputs`` calls, in rank order) joined into the whole
@@ -2268,7 +2314,7 @@ def replayed_update(label: str, path: str, calls: list) -> dict:
     from harl_tpu_torch.parallel.mesh import map_tensors
     from harl_tpu_torch.runners import common
 
-    runner = dp_runner(label)
+    runner = workload.make(device)
     state = runner.load_checkpoint(runner.init_state(0), torch.load(
         path, map_location=runner.device, weights_only=True))
     runner.generator.set_state(calls[0]["generator"])
@@ -2366,48 +2412,190 @@ def dp_compare(label: str, got: dict, ref: dict, rtol: float, atol: float,
     return worst
 
 
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (-0.0 is not 0.0)."""
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.contiguous().reshape(-1).view(torch.uint8), y.contiguous().reshape(-1).view(torch.uint8))
+
+
 def rows_apart(a: list, b: list) -> list:
     """Per env step, the largest |Δ| between two runs' inserted rows."""
     return [max((float((x - y).abs().max()) for x, y in zip(xs, ys) if x.numel()),
                 default=0.0) for xs, ys in zip(a, b)]
 
 
-def check_gathered_collect(ranks: list, ref: dict, path: str, card: str) -> None:
-    """HASAC's second collect on the ranks, against (1) each rank's share
-    of it replayed here without a process group (its columns, its cut of
-    the draws, at its width): the gathered rows must be the replays' rows
-    in rank order, bitwise; and (2) the one-rank run's collect from the
-    same state, at twice the width: reported, the width's own rounding."""
+def check_gathered_collect(ranks: list, ref: dict, states: list, card: str, label: str,
+                           workload: DPWorkload, device, tag: str) -> None:
+    """Every warmup and collect step of an off-policy workload on the
+    ranks, against (1) each rank's share of it replayed here without a
+    process group (its columns, its cut of the draws, at its width): the
+    gathered rows must be the replays' rows in rank order, bitwise; and (2)
+    the one-rank run's step from the same state, at the whole width:
+    reported, the width's own rounding."""
     world = len(ranks)
-    got = ranks[0]["hasac"]["steps"][1]["inserts"]
-    replays = [replayed_collect(r, world, path) for r in range(world)]
-    if len(got) != len(replays[0]):
-        raise AssertionError(f"(b) hasac: {len(got)} inserts against {len(replays[0])}")
-    for t, rows in enumerate(got):
-        want = [torch.cat(parts) for parts in zip(*(rp[t] for rp in replays))]
-        if not all(torch.equal(x, y) for x, y in zip(rows, want)):
-            raise AssertionError(f"(b) hasac: the gathered rows of env step {t + 1} are not "
-                                 "the ranks' replayed rows")
-    apart = rows_apart(got, ref["hasac"]["steps"][1]["inserts"])
-    print(f"(b) hasac: the second collect's {len(got)} gathered inserts equal, bitwise, each "
-          f"rank's {got[0][0].shape[0] // world} columns replayed without a process group; "
-          f"against the one-rank run's {got[0][0].shape[0]}-wide collect from the same state "
-          f"(the width's rounding, not the gather): max |Δ| {apart[0]:.3g} after env step 1, "
-          f"{max(apart[:10]):.3g} by step 10, {max(apart):.3g} by step {len(apart)} on {card}",
-          flush=True)
+    for i, kind in enumerate(workload.steps):
+        if kind not in ("warmup", "collect"):
+            continue
+        got = ranks[0][label]["steps"][i]["inserts"]
+        replays = [replayed_collect(r, world, states[i], workload, device, kind)
+                   for r in range(world)]
+        if len(got) != len(replays[0]):
+            raise AssertionError(f"{tag} {label}: {len(got)} inserts against {len(replays[0])}")
+        for t, rows in enumerate(got):
+            want = [torch.cat(parts) for parts in zip(*(rp[t] for rp in replays))]
+            if not all(same_bits(x, y) for x, y in zip(rows, want)):
+                raise AssertionError(f"{tag} {label}: the gathered rows of env step {t + 1} of "
+                                     f"its {kind} are not the ranks' replayed rows")
+        apart = rows_apart(got, ref[label]["steps"][i]["inserts"])
+        print(f"{tag} {label}: the {kind}'s {len(got)} gathered inserts (step {i + 1}) equal, "
+              f"bit for bit, each rank's {got[0][0].shape[0] // world} columns replayed without "
+              f"a process group; against the one-rank run's {got[0][0].shape[0]}-wide {kind} "
+              f"from the same state (the width's rounding, not the gather): max |Δ| "
+              f"{apart[0]:.3g} after env step 1, {max(apart[:10]):.3g} by step "
+              f"{min(10, len(apart))}, {max(apart):.3g} by step {len(apart)} on {card}",
+              flush=True)
 
 
 def step_seconds(r: dict) -> float:
-    """Seconds of a workload's timed steps: HASAC's second block (its
-    collect and train steps), else the iterations after the first where
-    there are several (the first may pay warm-up)."""
+    """Seconds of a workload's timed steps: the steps after the first where
+    there are several (the first may pay warm-up; for HASAC, its second
+    block, a collect and a train block)."""
     steps = r["steps"][1:] if len(r["steps"]) > 1 else r["steps"]
     return sum(s["seconds"] for s in steps)
 
 
-def step_env_steps(label: str, r: dict) -> int:
+def step_env_steps(workload: DPWorkload, r: dict) -> int:
     """Env-steps of the steps ``step_seconds`` times."""
-    return r["env_steps"] * (1 if label == "hasac" else max(len(r["steps"]) - 1, 1))
+    if workload.off_policy:
+        return r["env_steps"] * sum(s["kind"] == "collect" for s in r["steps"][1:])
+    return r["env_steps"] * max(len(r["steps"]) - 1, 1)
+
+
+def gae_expected(workload: DPWorkload, step: int, device) -> dict:
+    """The kernels' launches after ``step`` steps (from 1) of a workload on
+    ``device``: GAE once an on-policy iteration on a card, else none."""
+    on_card = torch.device(device).type == "cuda" and not workload.off_policy
+    return {"gae": step if on_card else 0, "discounted_returns": 0}
+
+
+def dp_reference(card: str, log_dir: str, workloads: dict, device="cuda") -> tuple:
+    """The one-rank runs without a mesh on ``device``: (the paths of the
+    states each step starts from, by workload; the runs)."""
+    os.makedirs(log_dir, exist_ok=True)
+    states = {label: [os.path.join(log_dir, f"{label}_state{i}.pt")
+                      for i in range(len(w.steps))] for label, w in workloads.items()}
+    ref = {label: dp_drive(label, None, card, states[label], None, w, device)
+           for label, w in workloads.items()}
+    for label, r in ref.items():
+        for i, st in enumerate(r["steps"]):
+            if st["launches"] != gae_expected(workloads[label], i + 1, device):
+                raise AssertionError(f"one-rank {label}: launches {st['launches']}")
+    return states, ref
+
+
+def dp_check_ranks(card: str, ranks: list, states: dict, ref: dict, workloads: dict, device,
+                   tag: str, where: str) -> tuple:
+    """The ranks' ``dp_rank`` results held against the one-rank runs
+    ``ref`` (``dp_reference``): the replicas bitwise equal after every step,
+    finite losses and statistics, the kernels' launches; on-policy, every
+    iteration's first-step gradients and, within DP_PARAM_ATOL, the
+    parameters equal to the one-rank update of the ranks' own rows
+    (``replayed_update``), against the one-rank run reported; off-policy,
+    the train blocks' first-step gradients and first critic losses equal
+    to the one-rank run's, its parameters reported, its gathered warmups
+    and collects bitwise equal to the ranks' replayed shares. ``device``
+    is the one-rank runs' and the replays'. Returns (launches by rank and
+    workload, the GAE kernel's in-situ numbers by rank and workload, rates by workload:
+    env-steps/s over all ranks and one-rank, each rank's seconds a step)."""
+    from harl_tpu_torch.parallel.mesh import tensors_of
+
+    world = len(ranks)
+    by_path, in_situ, rates = {}, {}, {}
+    for label, w in workloads.items():
+        seconds, worst, apart = [], {"held": 0.0, "one-rank": 0.0}, 0.0
+        if w.off_policy:
+            # its train blocks start from the one-rank run's state and buffer
+            held = ref[label]
+        else:
+            # the one-rank update of the very rows the ranks collected: the
+            # one-rank run's own rollout, at another width, rounds apart
+            calls = [[res[label]["steps"][i]["update_inputs"][0] for res in ranks]
+                     for i in range(len(states[label]))]
+            held = dict(steps=[replayed_update(path, c, w, device)
+                               for path, c in zip(states[label], calls)])
+            for c, st in zip(calls, ref[label]["steps"]):
+                mine = tensors_of(join_env_axis([x["args"] for x in c]))
+                theirs = tensors_of(st["update_inputs"][0]["args"])
+                apart = max([apart] + [float((x - y).abs().max()) for x, y in zip(mine, theirs)
+                                       if x.numel()])
+        for rank, res in enumerate(ranks):
+            r = res[label]
+            for i, st in enumerate(r["steps"]):
+                if st["mismatch"] != (0, 0.0):
+                    raise AssertionError(f"{tag} {label} rank {rank} step {i + 1}: replicas "
+                                         f"differ {st['mismatch']}")
+                bad = {k: v for k, v in st["metrics"].items() if not math.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"{tag} {label} rank {rank} step {i + 1}: {bad}")
+                if st["launches"] != gae_expected(w, i + 1, device):
+                    raise AssertionError(f"{tag} {label} rank {rank}: launches {st['launches']}")
+            name = f"{tag} {label} rank {rank}"
+            dp_compare_first(name if w.off_policy else
+                             f"{name} against the one-rank update of its rows", r, held)
+            if w.off_policy:
+                # Adam with eps 1e-8 moves a parameter by ±lr wherever its
+                # gradient is rounding noise, whichever the sign: reported
+                worst["one-rank"] = max(worst["one-rank"], dp_compare(
+                    name, r, ref[label], DP_RTOL, DP_PARAM_ATOL, check=False))
+            else:
+                worst["held"] = max(worst["held"], dp_compare(
+                    f"{name} against the one-rank update of its rows", r, held, DP_RTOL,
+                    DP_PARAM_ATOL))
+                dp_compare_first(f"{name} against the one-rank run", r, ref[label],
+                                 check=False)
+                worst["one-rank"] = max(worst["one-rank"], dp_compare(
+                    f"{name} against the one-rank run", r, ref[label], DP_RTOL, DP_PARAM_ATOL,
+                    check=False))
+            by_path[f"rank{rank}_{label}"] = r["steps"][-1]["launches"]
+            if "gae" in r:
+                in_situ[f"{label}_rank{rank}"] = r["gae"]
+            seconds.append([st["seconds"] for st in r["steps"]])
+        for i, st in enumerate(ref[label]["steps"]):
+            if st["first_loss"] is not None:
+                # the ranks' shares of a train block's first critic loss
+                loss = sum(res[label]["steps"][i]["first_loss"] for res in ranks)
+                if not math.isclose(loss, st["first_loss"], rel_tol=DP_RTOL):
+                    raise AssertionError(f"{tag} {label} step {i + 1}: first critic loss "
+                                         f"{loss} against {st['first_loss']}")
+        if w.off_policy:
+            check_gathered_collect(ranks, ref, states[label], card, label, w, device, tag)
+        r0 = ranks[0][label]
+        timed = [sum(s[1:] if len(s) > 1 else s) for s in seconds]
+        rates[label] = dict(
+            env_steps_per_s=world * step_env_steps(w, r0) / max(timed),
+            one_rank_env_steps_per_s=step_env_steps(w, ref[label]) / step_seconds(ref[label]),
+            seconds=seconds, one_rank_seconds=[st["seconds"] for st in ref[label]["steps"]],
+            collectives=[st["collectives"] for st in r0["steps"]],
+            collective_ms=[st["collective_ms"] for st in r0["steps"]])
+        secs = ", ".join("%.4f s" % st["seconds"] for st in r0["steps"])
+        colls = ", ".join("%d (%.3f ms)" % (st["collectives"], st["collective_ms"])
+                          for st in r0["steps"])
+        spread = max(max(s[i] for s in seconds) - min(s[i] for s in seconds)
+                     for i in range(len(seconds[0])))
+        held = (f"parameters reported (max |Δ| {worst['one-rank']:.3g})" if w.off_policy
+                else f"parameters within rtol {DP_RTOL}, atol {DP_PARAM_ATOL} of the one-rank "
+                f"update of the ranks' rows (max |Δ| {worst['held']:.3g}); against the one-rank "
+                f"run, whose rollout at another width may round apart (its update inputs max "
+                f"|Δ| {apart:.3g}), reported (max |Δ| {worst['one-rank']:.3g})")
+        print(f"{tag} {label}: {where}, {r0['env_steps']} env-steps a rank a "
+              f"{'block' if w.off_policy else 'iteration'}, each of its steps "
+              f"({', '.join(w.steps)}) from the one-rank run's state; replicas bitwise equal "
+              f"after each of {len(r0['steps'])}; {held}; "
+              f"{rates[label]['env_steps_per_s']:.1f} env-steps/s over the {world} ranks against "
+              f"{rates[label]['one_rank_env_steps_per_s']:.1f} one-rank; per step {secs} on rank "
+              f"0, the ranks' walls at most {spread:.4f} s apart; all-reduces and the time in "
+              f"them per step {colls} on rank 0; {card}", flush=True)
+    return by_path, in_situ, rates
 
 
 def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
@@ -2416,14 +2604,9 @@ def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
     iterations, bitwise equal to the same run without a mesh; (b) 2 ranks
     spawned on the one card (gloo over CUDA tensors): HalfCheetah HAPPO
     (2048 envs a rank), SMACLite 5m_vs_6m FP GRU HAPPO (128 a rank) and
-    HASAC at the bench's widths, each step from the one-rank run's state:
-    the replicas bitwise equal; on-policy every iteration's first-step
-    gradients and, within DP_PARAM_ATOL, the parameters equal to the
-    one-rank update of the ranks' own rows (``replayed_update``), against
-    the one-rank run reported; HASAC's train blocks' first-step gradients
-    and first critic losses equal to the one-rank run's, its gathered
-    collect equal to the ranks' replayed shares; GAE once an iteration on
-    each rank and held against its plain version on that rank's inputs; (c) the CLI:
+    HASAC at the bench's widths, each step from the one-rank run's state,
+    held by ``dp_check_ranks``; GAE once an iteration on each rank and held
+    against its plain version on that rank's inputs; (c) the CLI:
     ``--platform cpu --n_devices 2`` on a tiny MPE HAPPO run, and the tuned
     HalfCheetah-2x3 MAPPO (share_param) with ``--n_devices 1`` on the card;
     (e) env-steps/s of (a), (b) and the one-rank runs, and the milliseconds
@@ -2434,16 +2617,8 @@ def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
     from harl_tpu_torch.parallel.launch import free_port, spawn_ranks
     from harl_tpu_torch.runners import common
 
-    by_path, in_situ = {}, {}
-    states = {label: [os.path.join(log_dir, f"{label}_state{i}.pt")
-                      for i in range(len(DP_STEPS[label]))] for label in DP_WORKLOADS}
-    # the one-rank runs, without a mesh, on the card
-    ref = {label: dp_drive(label, None, card, states[label]) for label in DP_WORKLOADS}
-    for label, r in ref.items():
-        expect = 0 if label == "hasac" else 1
-        for i, st in enumerate(r["steps"]):
-            if st["launches"]["gae"] != expect * (i + 1):
-                raise AssertionError(f"one-rank {label}: launches {st['launches']}")
+    by_path = {}
+    states, ref = dp_reference(card, log_dir, DP_WORKLOADS)
     # (a) a world-1 NCCL group through run(mesh=…)
     zero_launches()
     dpmesh.distributed_init(f"localhost:{free_port()}", 1, 0, "nccl")
@@ -2451,7 +2626,7 @@ def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
         mesh = dpmesh.make_mesh("cuda")
         mesh.all_reduce_sum([torch.zeros(1, device="cuda")])   # NCCL's set-up, untimed
         mesh.time_collectives = True
-        runner = dp_runner("halfcheetah")
+        runner = DP_WORKLOADS["halfcheetah"].make("cuda")
         runner.num_env_steps = 2 * runner.episode_length * runner.n_rollout_threads
         runner.episodes = 2
         runner.algo_args["eval"]["use_eval"] = False
@@ -2474,96 +2649,24 @@ def drive_dp_paths(card: str, floor: dict, log_dir: str) -> tuple:
         worst = max(float((a - b).abs().max()) for a, b in zip(got, want) if a.numel())
         raise AssertionError(f"(a) world-1 NCCL run differs from the run without a mesh "
                              f"(max |Δ| {worst:.3g})")
-    ref_rate = {label: step_env_steps(label, r) / step_seconds(r)
-                for label, r in ref.items()}
+    rate = step_env_steps(DP_WORKLOADS["halfcheetah"], ref["halfcheetah"]) / \
+        step_seconds(ref["halfcheetah"])
     print(f"phase 19 (a): HalfCheetah-6x1 HAPPO {MAIN['n_envs']} x {MAIN['episode_length']} "
           f"through run(mesh=…) over a world-1 NCCL group, 2 iterations in {wall:.3f} s "
           f"(run's wall, init included); bitwise equal to the run without a mesh; {calls} "
           f"all-reduces, {coll_ms / 2:.3f} ms a iteration in them; gae launched "
-          f"{launches['gae']} times; one-rank run without a mesh "
-          f"{ref_rate['halfcheetah']:.1f} env-steps/s on {card}", flush=True)
+          f"{launches['gae']} times; one-rank run without a mesh {rate:.1f} env-steps/s on "
+          f"{card}", flush=True)
 
     # (b) two ranks on the one card, gloo over CUDA tensors
     t0 = time.perf_counter()
     ranks = spawn_ranks(dp_rank, 2, (card, floor, states), device="cuda:0", backend="gloo",
                         timeout_s=600)
     spawn_s = time.perf_counter() - t0
-    for label in DP_WORKLOADS:
-        rates, worst, apart = [], {"held": 0.0, "one-rank": 0.0}, 0.0
-        if label == "hasac":
-            # its train blocks start from the one-rank run's state and buffer
-            held = ref[label]
-        else:
-            # the one-rank update of the very rows the ranks collected: the
-            # one-rank run's own rollout, at twice the width, rounds apart
-            calls = [[res[label]["steps"][i]["update_inputs"][0] for res in ranks]
-                     for i in range(len(states[label]))]
-            held = dict(steps=[replayed_update(label, path, c)
-                               for path, c in zip(states[label], calls)])
-            from harl_tpu_torch.parallel.mesh import tensors_of
-
-            for c, st in zip(calls, ref[label]["steps"]):
-                mine = tensors_of(join_env_axis([x["args"] for x in c]))
-                theirs = tensors_of(st["update_inputs"][0]["args"])
-                apart = max([apart] + [float((x - y).abs().max()) for x, y in zip(mine, theirs)
-                                       if x.numel()])
-        for rank, res in enumerate(ranks):
-            r = res[label]
-            for i, st in enumerate(r["steps"]):
-                if st["mismatch"] != (0, 0.0):
-                    raise AssertionError(f"(b) {label} rank {rank} step {i + 1}: replicas "
-                                         f"differ {st['mismatch']}")
-                expect = 0 if label == "hasac" else i + 1
-                if st["launches"] != {"gae": expect, "discounted_returns": 0}:
-                    raise AssertionError(f"(b) {label} rank {rank}: launches {st['launches']}")
-            name = f"(b) {label} rank {rank}"
-            dp_compare_first(name if label == "hasac" else
-                             f"{name} against the one-rank update of its rows", r, held)
-            if label == "hasac":
-                # Adam with eps 1e-8 moves a parameter by ±lr wherever its
-                # gradient is rounding noise, whichever the sign: reported
-                worst["one-rank"] = max(worst["one-rank"], dp_compare(
-                    name, r, ref[label], DP_RTOL, DP_PARAM_ATOL, check=False))
-            else:
-                worst["held"] = max(worst["held"], dp_compare(
-                    f"{name} against the one-rank update of its rows", r, held, DP_RTOL,
-                    DP_PARAM_ATOL))
-                dp_compare_first(f"{name} against the one-rank run", r, ref[label],
-                                 check=False)
-                worst["one-rank"] = max(worst["one-rank"], dp_compare(
-                    f"{name} against the one-rank run", r, ref[label], DP_RTOL, DP_PARAM_ATOL,
-                    check=False))
-            by_path[f"dp_gloo_rank{rank}_{label}"] = r["steps"][-1]["launches"]
-            if "gae" in r:
-                in_situ[f"{label}_rank{rank}"] = r["gae"]
-            rates.append(step_seconds(r))
-        for i, st in enumerate(ref[label]["steps"]):
-            if st["first_loss"] is not None:
-                # the ranks' shares of a train block's first critic loss
-                loss = sum(res[label]["steps"][i]["first_loss"] for res in ranks)
-                if not math.isclose(loss, st["first_loss"], rel_tol=DP_RTOL):
-                    raise AssertionError(f"(b) {label} step {i + 1}: first critic loss {loss} "
-                                         f"against {st['first_loss']}")
-        if label == "hasac":
-            check_gathered_collect(ranks, ref, states["hasac"][1], card)
-        r0 = ranks[0][label]
-        n_steps = len(r0["steps"])
-        rate = 2 * step_env_steps(label, r0) / max(rates)
-        secs = ", ".join("%.4f s" % st["seconds"] for st in r0["steps"])
-        colls = ", ".join("%d (%.3f ms)" % (st["collectives"], st["collective_ms"])
-                          for st in r0["steps"])
-        held = (f"parameters reported (max |Δ| {worst['one-rank']:.3g})" if label == "hasac"
-                else f"parameters within rtol {DP_RTOL}, atol {DP_PARAM_ATOL} of the one-rank "
-                f"update of the ranks' rows (max |Δ| {worst['held']:.3g}); against the one-rank "
-                f"run, whose rollout at twice the width rounds apart (its update inputs max "
-                f"|Δ| {apart:.3g}), reported (max |Δ| {worst['one-rank']:.3g})")
-        print(f"phase 19 (b) {label}: 2 ranks on one card (gloo), {r0['env_steps']} env-steps "
-              f"a rank a {'block' if label == 'hasac' else 'iteration'}, each of its steps "
-              f"({', '.join(DP_STEPS[label])}) from the "
-              f"one-rank run's state; replicas bitwise equal after each of {n_steps}; {held}; "
-              f"{rate:.1f} env-steps/s over both ranks against {ref_rate[label]:.1f} one-rank; "
-              f"per step {secs}; all-reduces and the time in them per step {colls} on rank 0; "
-              f"not a scaling number: both ranks share the card; {card}", flush=True)
+    paths, in_situ, _ = dp_check_ranks(
+        card, ranks, states, ref, DP_WORKLOADS, "cuda", "phase 19 (b)",
+        "2 ranks on one card (gloo; not a scaling number: both ranks share the card)")
+    by_path.update({f"dp_gloo_{k}": v for k, v in paths.items()})
     log(f"phase 19 (b): {spawn_s:.1f} s with the spawn")
 
     # (c) the CLI: two gloo ranks on the CPU, and n_devices 1 on the card
@@ -2945,6 +3048,24 @@ def drive_parity_path(card: str, log_dir: str, platform: str = "cuda",
     return {"parity_" + PARITY_RUN: launches}, situ
 
 
+# ------------------------------------------- several cards (phase 22)
+def drive_multicard_paths(card: str, floor: dict, log_dir: str) -> tuple:
+    """Phase 22: ``scripts/torch_multicard.py``'s legs on this one card
+    (its ``smoke_phase``): legs 1, 3 and 4 on one rank over a world-1 NCCL
+    group, legs 1 and 2 on 4 gloo ranks sharing the card. Returns (launches
+    by path, the GAE kernel's in-situ numbers by path)."""
+    import importlib
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    t0 = time.perf_counter()
+    multicard = importlib.import_module("scripts.torch_multicard")
+    by_path, in_situ = multicard.smoke_phase(card, floor, log_dir)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return by_path, in_situ
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -3009,6 +3130,11 @@ def main() -> int:
         parity_paths, parity_gae = drive_parity_path(card, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        multicard_paths, multicard_gae = drive_multicard_paths(card, floor, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -3018,7 +3144,7 @@ def main() -> int:
     slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
-               **slice9, **dp_paths, **host_paths, **parity_paths}
+               **slice9, **dp_paths, **host_paths, **parity_paths, **multicard_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:
@@ -3032,7 +3158,8 @@ def main() -> int:
                          soccer_in_situ=slice9_gae["soccer_happo"],
                          aircombat_in_situ=slice9_gae["aircombat_happo"],
                          host_in_situ=host_gae, parity_in_situ=parity_gae,
-                         **{f"dp_{k}_in_situ": v for k, v in dp_gae.items()})
+                         **{f"dp_{k}_in_situ": v for k, v in dp_gae.items()},
+                         **{f"{k}_in_situ": v for k, v in multicard_gae.items()})
         kernels.append(dict(
             name=name, route="cuda", source="harl_tpu_torch/csrc/gae.cu", replaces=replaces,
             launches=sum(p[name] for p in by_path.values()),

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from harl_tpu_torch.parallel.mesh import LOCAL, Mesh
+from harl_tpu_torch.utils.checkpoint import steps_on_cpu
 
 
 class ClippedAdam:
@@ -74,7 +75,7 @@ class ClippedAdam:
         """Adam's moments and step counts; the lr stays the live config's,
         as an optax state holds no lr."""
         lrs = [g["lr"] for g in self.adam.param_groups]
-        self.adam.load_state_dict(sd["adam"])
+        self.adam.load_state_dict(steps_on_cpu(self.adam, sd["adam"]))
         for g, lr in zip(self.adam.param_groups, lrs):
             g["lr"] = lr
         self.count = int(sd["count"])

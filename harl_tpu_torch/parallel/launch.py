@@ -37,13 +37,18 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, device: str, back
         dev = torch.device("cuda", rank)     # a card of its own
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    else:
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # the ranks share the host's cores: four ranks on four H100s of one
+    # 32-core host ran the weak-scaling workloads 4.5 % faster in all with
+    # cores // 4 threads each than with every core each (PERF.md §5)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     dev = resolve_device(dev)
     dpmesh.distributed_init(f"localhost:{port}", world, rank, backend, timeout_s)
     try:
         result = fn(dpmesh.make_mesh(dev), *args)
+        if dev.type == "cuda":
+            # a rank done first may leave an NCCL collective queued behind
+            # the others: finish it before the group goes
+            torch.cuda.synchronize(dev)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dpmesh.shutdown()

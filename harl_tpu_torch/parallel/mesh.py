@@ -17,12 +17,13 @@ GSPMD does:
     rank before the optimizer's clip and step, so every replica takes the
     same step;
   * ``gather_rows`` assembles global rows (the replay buffer's inserts,
-    a checkpoint's carry) from every rank, in rank order.
+    a checkpoint's carry) from every rank, in rank order, bit for bit.
 
 A run over W ranks therefore equals the one-rank run at the same global
-batch up to the order of float sums. The collectives are ``all_reduce``
-and ``broadcast`` only: NCCL when every rank has a CUDA device of its own,
-gloo on the CPU and for ranks that share one card.
+batch up to the order of float sums. The backend is NCCL when every rank
+has a CUDA device of its own, gloo on the CPU and for ranks that share one
+card. The collectives are ``all_reduce`` and ``broadcast``, which gloo
+offers for CUDA tensors, and under NCCL ``all_gather_into_tensor``.
 
 A run without a process group holds ``LOCAL``, the world-1 mesh whose
 collectives return their inputs, so the losses, statistics and updates
@@ -39,10 +40,10 @@ import torch.distributed as dist
 
 class Mesh:
     """A rank's view of the data-parallel group: ``rank`` of ``world``, on
-    ``device``. With ``time_collectives`` set, every all-reduce is timed
-    with CUDA events (``collective_ms``). With ``grouped`` false (``LOCAL``)
-    there is no process group: one rank, whose collectives return their
-    inputs."""
+    ``device``. With ``time_collectives`` set, every collective on a card
+    is timed with CUDA events (``collective_ms``). With ``grouped`` false
+    (``LOCAL``) there is no process group: one rank, whose collectives
+    return their inputs."""
 
     def __init__(self, rank: int, world: int, device=None, grouped: bool = True):
         self.rank, self.world, self.grouped = rank, world, grouped
@@ -56,19 +57,24 @@ class Mesh:
         return self.rank == 0
 
     # ------------------------------------------------------------ collectives
-    def _all_reduce(self, flat: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
+    def _collective(self, run, on_card: bool) -> None:
+        """``run()``, one collective: counted and, with ``time_collectives``
+        on a card, timed with CUDA events."""
         self.calls += 1
-        if not (self.time_collectives and flat.is_cuda):
-            dist.all_reduce(flat, op=op)
+        if not (self.time_collectives and on_card):
+            run()
             return
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        dist.all_reduce(flat, op=op)
+        run()
         end.record()
         self._events.append((start, end))
 
+    def _all_reduce(self, flat: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
+        self._collective(lambda: dist.all_reduce(flat, op=op), flat.is_cuda)
+
     def collective_ms(self) -> float:
-        """Milliseconds spent in the timed all-reduces since the last call."""
+        """Milliseconds spent in the timed collectives since the last call."""
         if self._events:
             self._events[-1][1].synchronize()
         ms = sum(s.elapsed_time(e) for s, e in self._events)
@@ -114,39 +120,66 @@ class Mesh:
         return x[lo:hi]
 
     def gather_rows(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Every rank's rows, in rank order, from equal local blocks: an
-        all-reduce of zero-filled global buffers in which each rank fills
-        its own rows (exact: each element adds zeros to one value)."""
-        if not self.grouped:
+        """Every rank's rows, in rank order, from equal local blocks, bit
+        for bit (-0.0 and NaN payloads included): the tensors travel as the
+        bytes of one flat buffer, gathered into W rows by
+        ``all_gather_into_tensor`` under NCCL; gloo, which gathers no CUDA
+        tensors, all-reduces a zero-filled buffer of W rows in which each
+        rank fills its own (exact: every byte adds zeros to one value)."""
+        if not self.grouped or not tensors:
             return list(tensors)
-        full = []
+        mine = torch.cat([_bytes(x.to(self.device)) for x in tensors])
+        if dist.get_backend() == dist.Backend.NCCL:
+            full = torch.empty((self.world, mine.numel()), dtype=torch.uint8, device=mine.device)
+            self._collective(lambda: dist.all_gather_into_tensor(full, mine), mine.is_cuda)
+        else:
+            full = torch.zeros((self.world, mine.numel()), dtype=torch.uint8, device=mine.device)
+            full[self.rank] = mine
+            self._all_reduce(full)
+        out, off = [], 0
         for x in tensors:
-            n = x.shape[0]
-            buf = torch.zeros((n * self.world,) + tuple(x.shape[1:]), dtype=_wire(x.dtype),
-                              device=x.device)
-            buf[self.rank * n:(self.rank + 1) * n] = x
-            full.append(buf)
-        return [g.to(x.dtype) for g, x in zip(self.all_reduce_sum(full), tensors)]
+            nb = x.numel() * x.element_size()
+            # a copy starting at offset 0, so that its bytes view as x's dtype
+            part = full[:, off:off + nb].clone().reshape(-1).view(x.dtype)
+            out.append(part.reshape((self.world * x.shape[0],) + tuple(x.shape[1:]))
+                       .to(x.device))
+            off += nb
+        return out
 
     def replica_mismatch(self, tensors: Sequence[torch.Tensor]) -> Tuple[int, float]:
-        """(elements whose bits differ from rank 0's, max |Δ| to rank 0's)
-        summed and maxed over the ranks: (0, 0.0) where the replicas are
-        bitwise equal."""
+        """(elements whose bits differ from rank 0's, max |Δ| to rank 0's
+        over those elements) summed and maxed over the ranks: (0, 0.0)
+        where the replicas are bitwise equal, whatever their dtypes."""
         if not self.grouped:
             return 0, 0.0
-        flat = torch.cat([t.detach().reshape(-1).to(self.device, torch.float32)
-                          for t in tensors])
-        ref = flat.clone()
+        mine = [t.detach().reshape(-1).to(self.device) for t in tensors]
+        flat = torch.cat([_bytes(t) for t in mine])
+        values = torch.cat([t.to(torch.float64) for t in mine])
+        ref, ref_values = flat.clone(), values.clone()
         dist.broadcast(ref, src=0)
-        bits = (flat.view(torch.int32) != ref.view(torch.int32)).sum().to(torch.float32)
-        diff = torch.nan_to_num((flat - ref).abs(), nan=float("inf")).max()
-        (bits,) = self.all_reduce_sum([bits])
-        stat = diff.reshape(1)
+        dist.broadcast(ref_values, src=0)
+        differ, off = [], 0
+        for t in mine:
+            nb = t.numel() * t.element_size()
+            # an element differs where any of its bytes does
+            differ.append((flat[off:off + nb] != ref[off:off + nb])
+                          .reshape(t.numel(), t.element_size()).any(dim=1))
+            off += nb
+        differ = torch.cat(differ)
+        diff = torch.where(differ, torch.nan_to_num((values - ref_values).abs(),
+                                                    nan=float("inf")), 0.0)
+        (bits,) = self.all_reduce_sum([differ.sum().to(torch.float64)])
+        stat = diff.max().reshape(1)
         self._all_reduce(stat, dist.ReduceOp.MAX)
         return int(bits), float(stat)
 
 
 LOCAL = Mesh(0, 1, grouped=False)
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """The bytes of ``x``, flat (a view where ``x`` is contiguous)."""
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
 def _wire(dtype: torch.dtype) -> torch.dtype:

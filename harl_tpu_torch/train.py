@@ -36,6 +36,8 @@ import os
 
 ON_POLICY = ("happo", "hatrpo", "haa2c", "mappo")
 ALGOS = ON_POLICY + ("haddpg", "hatd3", "hasac", "had3qn", "maddpg", "matd3")
+# the device section's keys, the JAX CLI's flags of data parallelism
+DEVICE_FLAGS = ("platform", "n_devices", "num_processes", "coordinator", "process_id")
 
 
 def _parse_unknown(unparsed):
@@ -128,8 +130,9 @@ def _worker(local_rank, args, algo_args, env_args, seed, dirs, dp) -> None:
         device = resolve_device(f"cuda:{local_rank}")
     else:
         device = resolve_device("cpu")
-        # the local ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // dp["local"]))
+    # the local ranks share the host's cores, on the CPU and on the cards
+    # alike (parallel/launch.py)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // dp["local"]))
     dpmesh.distributed_init(dp["coordinator"], dp["world"], rank,
                             "nccl" if device.type == "cuda" else "gloo")
     try:
@@ -139,6 +142,10 @@ def _worker(local_rank, args, algo_args, env_args, seed, dirs, dp) -> None:
             dirs = (None, None, None if dirs[2] is None else "")
         _train(args, algo_args, env_args, device, seed, dirs,
                dpmesh.make_mesh(device))
+        if device.type == "cuda":
+            # the last checkpoint's gather, queued on the card while rank 0
+            # still evaluates, must end before the group is destroyed
+            torch.cuda.synchronize(device)
     finally:
         dpmesh.shutdown()
 
@@ -146,7 +153,11 @@ def _worker(local_rank, args, algo_args, env_args, seed, dirs, dp) -> None:
 def resolve_args(argv=None) -> tuple:
     """(main args, algo args, env args) of a command line: the saved config
     or the YAML defaults with the ``--key value`` overrides applied, as the
-    JAX CLI resolves them (``harl_tpu/train.py:34-63``)."""
+    JAX CLI resolves them (``harl_tpu/train.py:34-63``). The data-parallel
+    flags of ``DEVICE_FLAGS`` given on the command line also apply where a
+    saved config's device section lacks them (the on-policy tuned configs
+    name only ``platform`` and ``n_devices``), where the JAX CLI drops
+    them."""
     parser = argparse.ArgumentParser(description="HARL training on PyTorch/CUDA")
     parser.add_argument("--algo", default="happo", choices=list(ALGOS))
     parser.add_argument("--env", default="pettingzoo_mpe")
@@ -164,7 +175,12 @@ def resolve_args(argv=None) -> tuple:
         args["env"] = saved_main.get("env", args["env"])
     else:
         algo_args, env_args = get_defaults_yaml_args(args["algo"], args["env"])
-    update_args(_parse_unknown(unparsed), algo_args, env_args)
+    overrides = _parse_unknown(unparsed)
+    update_args(overrides, algo_args, env_args)
+    device = algo_args.setdefault("device", {})
+    for key in DEVICE_FLAGS:
+        if key in overrides and key not in device:
+            device[key] = overrides[key]
     return args, algo_args, env_args
 
 

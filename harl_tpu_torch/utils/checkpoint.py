@@ -141,6 +141,9 @@ def _load(live: Any, saved: Any) -> Any:
     if isinstance(live, nn.Module):
         live.load_state_dict(saved)
         return live
+    if isinstance(live, torch.optim.Optimizer):
+        live.load_state_dict(steps_on_cpu(live, saved))
+        return live
     if _has_state_dict(live):
         live.load_state_dict(saved)
         return live
@@ -155,6 +158,18 @@ def _load(live: Any, saved: Any) -> Any:
     for k, v in _fields(live).items():
         setattr(live, k, _load(v, saved[k]))
     return live
+
+
+def steps_on_cpu(opt: torch.optim.Optimizer, sd: dict) -> dict:
+    """``sd`` (a state dict of ``opt``) with its step counts on the CPU,
+    where torch keeps them for an optimizer that is neither capturable nor
+    fused: a payload restored onto the card brings them there, and Adam
+    then reads a count on the card with a host sync a parameter a step."""
+    if any(g.get("capturable") or g.get("fused") for g in opt.param_groups):
+        return sd
+    state = {k: {**v, "step": v["step"].cpu()} if torch.is_tensor(v.get("step")) else v
+             for k, v in sd.get("state", {}).items()}
+    return {**sd, "state": state}
 
 
 def save_state(save_dir: str, payload: dict, step: int = 0) -> str:

@@ -4,8 +4,8 @@ package's recorded learning results through ``harl_tpu_torch.train.main``,
 with several seeds, and hold each run against its record.
 
     python scripts/torch_learning_parity.py [--runs NAME,...] [--seeds 1,2,3]
-        [--jobs N] [--iterations N] [--platform cpu] [--out validation_torch]
-        [--log_dir DIR] [--table] [-- EXTRA ARGV]
+        [--jobs N] [--ranks N] [--iterations N] [--platform cpu]
+        [--out validation_torch] [--log_dir DIR] [--table] [-- EXTRA ARGV]
 
 Run it from the root of the repository (the run table's paths are
 relative to it). ``RUNS`` holds one entry a run: the argv of the JAX command that produced
@@ -18,7 +18,13 @@ takes ``--seed s`` for every seed asked for; seed 1 is the JAX runs' seed.
 Every (run, seed) trains in a child process of its own, so that its peak
 memory is its own; ``--jobs N`` runs N children at once on the one card
 (the paths are host-bound), and each record says how many ran beside it
-(``concurrent``). The runs use CUDA unless ``--platform cpu`` is given;
+(``concurrent``). With ``--ranks N`` each run trains data-parallel over N
+ranks, one child process a rank (``--num_processes N --process_id k
+--n_devices 1``), rank k on card k mod the cards visible (its own
+``CUDA_VISIBLE_DEVICES``); rank 0 writes the run's files, every rank
+holds its GAE launches and in-situ error, and the record says how many
+ranks and cards the run used (``ranks``, ``cards``; a record without them
+is one rank on one card). The runs use CUDA unless ``--platform cpu`` is given;
 without a CUDA device the script exits non-zero. ``--iterations N`` cuts
 every run to N iterations (a rate measurement or a rehearsal); the words
 after ``--`` are appended to every run's argv (narrow widths on the CPU).
@@ -224,11 +230,13 @@ def run_argv(name: str, seed: int, platform: str, iterations: int, extra: list,
 
 
 def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
-            iterations: int = 0, extra: tuple = (), concurrent: int = 1) -> dict:
-    """Train one (run, seed) in this process, write its CSVs and JSON into
-    ``out_dir`` and return the record; raises after writing it if the GAE
-    kernel was not launched once an iteration or its in-situ error is out
-    of bound."""
+            iterations: int = 0, extra: tuple = (), concurrent: int = 1,
+            ranks: int = 1, cards: int = 1) -> dict:
+    """Train one (run, seed) in this process (with ``ranks`` above 1, this
+    process's rank of it: ``extra`` then names the process group), write
+    its CSVs and JSON into ``out_dir`` (rank 0 only) and return the
+    record; raises after writing it if the GAE kernel was not launched
+    once an iteration or its in-situ error is out of bound."""
     import torch
 
     from harl_tpu_torch import train
@@ -240,6 +248,7 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
     argv, tr = run_argv(name, seed, platform, iterations, list(extra), log_dir)
     T, n = tr["episode_length"], tr["n_rollout_threads"]
     budget = max(tr["num_env_steps"] // (T * n), 1) * T * n
+    columns = n // ranks     # a rank's envs
     if platform != "cpu":
         torch.cuda.reset_peak_memory_stats()
     launches0 = K.gae.launches
@@ -249,6 +258,15 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
     wall = time.perf_counter() - t0
     launches = K.gae.launches - launches0
     iters = len(ins.iteration_s)
+    situ = ins.in_situ
+    if run_dir is None:
+        # a rank other than 0: nothing written, its own kernel checked
+        print(f"{name} seed {seed}: a rank of {ranks}, {iters} iterations, gae launches "
+              f"{launches}; in situ T={situ['T']}, b={situ['b']}: max |err| "
+              f"{situ['max_abs_err']:.3g} of returns up to {situ['max_abs_return']:.3g}, "
+              f"{situ['ms']} ms warm", flush=True)
+        check_rank(name, seed, platform, launches, iters, situ, (T, columns))
+        return {}
     curves = read_curves(run_dir)
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.join(out_dir, f"{name}_s{seed}")
@@ -260,6 +278,7 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
     values = dict(curves[spec["metric"]])
     rec = dict(
         run=name, seed=seed, argv=argv, card=card, platform=platform, concurrent=concurrent,
+        ranks=ranks, cards=cards,
         device=torch.cuda.get_device_name(0) if platform != "cpu" else "cpu",
         env_steps=budget, iterations=iters, wall_s=wall, env_steps_per_s=budget / wall,
         iteration_s=ins.iteration_s, eval_s=ins.eval_s,
@@ -271,23 +290,40 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         run_dir=run_dir)
     with open(f"{stem}.json", "w") as f:
         json.dump(rec, f, indent=1)
-    situ = ins.in_situ
     print(f"{name} seed {seed}: {iters} iterations, {budget} env-steps in {wall:.1f} s "
           f"({budget / wall:.1f} env-steps/s, {concurrent} run(s) at once), evals "
           f"{[round(s, 2) for s in ins.eval_s]} s; gae launches {launches}; in situ "
           f"T={situ['T']}, b={situ['b']}: max |err| {situ['max_abs_err']:.3g} of returns up to "
           f"{situ['max_abs_return']:.3g}, {situ['ms']} ms warm; at the record "
-          f"{rec['at_record']} on {card}", flush=True)
+          f"{rec['at_record']} on {card_label(rec)}", flush=True)
+    check_rank(name, seed, platform, launches, iters, situ, (T, columns))
+    return rec
+
+
+def check_rank(name: str, seed: int, platform: str, launches: int, iters: int, situ: dict,
+               shape: tuple) -> None:
+    """Raise unless the GAE kernel ran once an iteration (on a card) and
+    its in-situ error at the rank's (T, b) is within bound."""
     if platform != "cpu" and launches != iters:
         raise AssertionError(f"{name} seed {seed}: gae launched {launches} times in {iters} "
                              "iterations")
     if situ["max_abs_err"] > GAE_REL_BOUND * situ["max_abs_return"]:
         raise AssertionError(f"{name} seed {seed}: in-situ gae error {situ['max_abs_err']} "
                              f"beyond {GAE_REL_BOUND} of {situ['max_abs_return']}")
-    if (situ["T"], situ["b"]) != (T, n):
+    if (situ["T"], situ["b"]) != shape:
         raise AssertionError(f"{name}: gae in situ at T={situ['T']}, b={situ['b']}, "
-                             f"expected T={T}, b={n}")
-    return rec
+                             f"expected T={shape[0]}, b={shape[1]}")
+
+
+def card_label(rec: dict) -> str:
+    """The card a record ran on and, over several ranks, how many ranks
+    and cards it used (a record without ``ranks`` is one rank on one card)."""
+    ranks = rec.get("ranks", 1)
+    if ranks == 1:
+        return rec["card"]
+    if rec.get("platform") == "cpu":
+        return f"{ranks} ranks on the CPU"
+    return f"{ranks} ranks on {rec['cards']} cards: {rec['card']}"
 
 
 def load_records(out_dir: str, names) -> dict:
@@ -326,7 +362,7 @@ def table(out_dir: str, names) -> tuple:
             gae = ", ".join(f"{r['gae_launches_per_iteration']:g}; "
                             f"{r['gae_in_situ']['max_abs_err']:.2g} / "
                             f"{r['gae_in_situ']['max_abs_return']:.3g}" for r in recs)
-            cards = "; ".join(sorted({r["card"] for r in recs}))
+            cards = "; ".join(sorted({card_label(r) for r in recs}))
             lines.append(
                 f"| {name} | {step:,} | {by_seed} | {'—' if med is None else f'{med:.4g}'} | "
                 f"{spec['metric']} {record} ({spec['source']}) | "
@@ -338,34 +374,58 @@ def table(out_dir: str, names) -> tuple:
 
 
 def run_children(pairs: list, args, extra: list) -> list:
-    """Run each (run, seed) as a child process, ``args.jobs`` at once, its
-    output in ``<log_dir>/<run>_s<seed>.log``; returns the pairs that
-    failed."""
+    """Run each (run, seed) as child processes, one a rank (``args.ranks``),
+    ``args.jobs`` runs at once, a rank's output in
+    ``<log_dir>/<run>_s<seed>.log`` (rank k > 0: ``<run>_s<seed>_rank<k>.log``);
+    returns the pairs that failed. A rank that fails stops its run's
+    others."""
+    from harl_tpu_torch.parallel.launch import free_port
+
     os.makedirs(args.log_dir, exist_ok=True)
     pending, running, failed = list(pairs), [], []
     while pending or running:
         while pending and len(running) < args.jobs:
             name, seed = pending.pop(0)
-            log = open(os.path.join(args.log_dir, f"{name}_s{seed}.log"), "w")
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", "--runs", name,
-                   "--seeds", str(seed), "--platform", args.platform, "--out", args.out,
-                   "--log_dir", args.log_dir, "--iterations", str(args.iterations),
-                   "--jobs", str(min(args.jobs, len(pairs))), "--", *extra]
-            proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
-            running.append((proc, log, name, seed))
-            print(f"started {name} seed {seed}", flush=True)
+            coordinator, group = f"localhost:{free_port()}", []
+            for k in range(args.ranks):
+                log = open(os.path.join(args.log_dir, f"{name}_s{seed}"
+                                        + (f"_rank{k}" if k else "") + ".log"), "w")
+                cmd = [sys.executable, str(Path(__file__).resolve()), "--child", "--runs", name,
+                       "--seeds", str(seed), "--platform", args.platform, "--out", args.out,
+                       "--log_dir", args.log_dir, "--iterations", str(args.iterations),
+                       "--jobs", str(min(args.jobs, len(pairs))), "--ranks", str(args.ranks),
+                       "--cards", str(args.cards), "--", *extra]
+                env = dict(os.environ)
+                if args.ranks > 1:
+                    cmd += ["--num_processes", str(args.ranks), "--coordinator", coordinator,
+                            "--process_id", str(k), "--n_devices", "1"]
+                    if args.cards:
+                        env["CUDA_VISIBLE_DEVICES"] = str(k % args.cards)
+                group.append((subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                                               stderr=subprocess.STDOUT, env=env), log))
+            running.append((group, name, seed))
+            print(f"started {name} seed {seed}"
+                  + (f" on {args.ranks} ranks" if args.ranks > 1 else ""), flush=True)
         time.sleep(1.0)
         for item in list(running):
-            proc, log, name, seed = item
-            if proc.poll() is None:
+            group, name, seed = item
+            codes = [proc.poll() for proc, _ in group]
+            if any(c not in (None, 0) for c in codes):
+                for proc, _ in group:
+                    if proc.poll() is None:
+                        proc.kill()
+                codes = [proc.wait() for proc, _ in group]
+            if None in codes:
                 continue
             running.remove(item)
-            log.close()
-            with open(log.name) as f:
-                tail = f.read().splitlines()[-1 if proc.returncode == 0 else -30:]
-            print(f"{name} seed {seed} exited {proc.returncode}: " + "\n".join(tail),
-                  flush=True)
-            if proc.returncode != 0:
+            tails = []
+            for (proc, log), code in zip(group, codes):
+                log.close()
+                with open(log.name) as f:
+                    tails += f.read().splitlines()[-1 if code == 0 else -30:]
+            code = max(codes, key=abs)
+            print(f"{name} seed {seed} exited {code}: " + "\n".join(tails), flush=True)
+            if code != 0:
                 failed.append((name, seed))
     return failed
 
@@ -381,7 +441,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", default=",".join(RUNS))
     ap.add_argument("--seeds", default="1,2,3")
-    ap.add_argument("--jobs", type=int, default=1, help="children at once")
+    ap.add_argument("--jobs", type=int, default=1, help="runs at once")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="data-parallel ranks a run, one child process a rank")
+    ap.add_argument("--cards", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--iterations", type=int, default=0, help="cut each run to N iterations")
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default="validation_torch")
@@ -396,7 +459,7 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",")]
     if args.child:
         run_one(names[0], seeds[0], args.platform, args.out, args.log_dir, args.iterations,
-                extra, args.jobs)
+                extra, args.jobs, args.ranks, min(args.ranks, args.cards))
         return 0
     failed = []
     if not args.table:
@@ -411,6 +474,7 @@ def main(argv=None) -> int:
 
             _build.build("gae")   # once, before the children load it
             print(_chip_smoke().card_line(), flush=True)
+            args.cards = torch.cuda.device_count()
         failed = run_children([(n, s) for n in names for s in seeds], args, extra)
     text, verdicts = table(args.out, names)
     print(text)

@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain versions, on a CUDA device.
+"""The port's CUDA kernels against their plain versions, on a CUDA device,
+and with two devices or more the data-parallel collectives over NCCL.
 
-Marked ``cuda``; each test skips on a host without a CUDA device. This file
+Marked ``cuda``; each test skips on a host without a CUDA device (the NCCL
+ones with fewer than two, deciding in their fixture). This file
 imports nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -457,3 +459,102 @@ def test_two_gloo_ranks_on_one_card_equal_one_rank(device):
             assert got["launches"] == want["launches"] == i + 1
             for a, b in zip(got["tensors"], want["tensors"]):
                 torch.testing.assert_close(a, b, rtol=DP_RTOL, atol=DP_ATOL)
+
+
+# ------------------------------------------ NCCL between cards (several)
+def _nccl_rank(mesh):
+    """On each rank over NCCL, one card each: rows to gather (with -0.0, a
+    NaN, bools, float64 one ulp off 1 and uint8), tensors to sum in three
+    dtypes, replicas that agree, and replicas one bit apart on the last
+    rank; returns its inputs and what the collectives gave."""
+    import torch.distributed as dist
+
+    r, dev = mesh.rank, mesh.device
+    rows = (torch.tensor([[-0.0, 1.0 + r], [float("nan"), -2.5]], device=dev),
+            torch.tensor([[True], [r % 2 == 1]], device=dev),
+            (torch.arange(4, dtype=torch.float64, device=dev).reshape(2, 2) + r) * (1 + 2e-16),
+            torch.full((2, 3), r, dtype=torch.uint8, device=dev))
+    sums = (torch.full((3,), 0.5 + r, device=dev),
+            torch.full((2,), 1.0 + r, dtype=torch.float64, device=dev),
+            torch.full((4,), r + 1, dtype=torch.uint8, device=dev))
+    off = torch.ones(5, device=dev)
+    if r == mesh.world - 1:
+        off[2] = torch.nextafter(off[2], torch.tensor(2.0, device=dev))
+    return dict(backend=dist.get_backend(), device=str(dev),
+                rows=[t.cpu() for t in rows],
+                gathered=[t.cpu() for t in mesh.gather_rows(rows)],
+                sums=[t.cpu() for t in mesh.all_reduce_sum(sums)],
+                equal=mesh.replica_mismatch([torch.ones(5, device=dev),
+                                             torch.ones(3, dtype=torch.float64, device=dev)]),
+                one_bit=mesh.replica_mismatch([off]))
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks():
+    """One spawn of a rank a card over NCCL (skips with fewer than two)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    from harl_tpu_torch.parallel.launch import spawn_ranks
+
+    return spawn_ranks(_nccl_rank, torch.cuda.device_count(), device="cuda", backend="nccl",
+                       timeout_s=300)
+
+
+def _bits(x):
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def test_nccl_gather_rows_is_bitwise(nccl_ranks):
+    """Every rank's gathered rows are the ranks' rows in rank order, bit
+    for bit: -0.0 stays -0.0, a NaN its payload, bools and uint8 their
+    values, float64 its last bit."""
+    assert [r["device"] for r in nccl_ranks] == [f"cuda:{k}" for k in range(len(nccl_ranks))]
+    for res in nccl_ranks:
+        assert res["backend"] == "nccl"
+        for i, got in enumerate(res["gathered"]):
+            want = torch.cat([r["rows"][i] for r in nccl_ranks])
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(_bits(got), _bits(want))
+        assert torch.signbit(res["gathered"][0][0, 0])
+
+
+def test_nccl_all_reduce_sum_in_three_dtypes(nccl_ranks):
+    W = len(nccl_ranks)
+    for res in nccl_ranks:
+        f32, f64, u8 = res["sums"]
+        assert (f32.dtype, f64.dtype, u8.dtype) == (torch.float32, torch.float64, torch.uint8)
+        assert torch.equal(f32, torch.full((3,), sum(0.5 + r for r in range(W))))
+        assert torch.equal(f64, torch.full((2,), sum(1.0 + r for r in range(W)),
+                                           dtype=torch.float64))
+        assert torch.equal(u8, torch.full((4,), W * (W + 1) // 2, dtype=torch.uint8))
+
+
+def test_nccl_replica_mismatch_catches_one_bit(nccl_ranks):
+    for res in nccl_ranks:
+        assert res["equal"] == (0, 0.0)
+        bits, diff = res["one_bit"]
+        assert bits == 1 and 0.0 < diff < 1e-6
+
+
+def test_a_restore_keeps_adam_step_counts_on_the_cpu(device, tmp_path):
+    """A checkpoint restored onto the card keeps every Adam's step counts
+    on the CPU, where torch keeps them (a count on the card costs a host
+    sync a parameter at every step), and its moments on the card."""
+    from harl_tpu_torch.runners.on_policy import OnPolicyRunner
+    from harl_tpu_torch.utils import checkpoint
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, env_args = get_defaults_yaml_args("happo", "mamujoco_jax")
+    algo_args["train"].update(n_rollout_threads=8, episode_length=8)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    env_args.update(agent_conf="2x3", episode_limit=5)
+    runner = OnPolicyRunner({"algo": "happo", "env": "mamujoco_jax"}, algo_args, env_args,
+                            device=device)
+    state, _ = runner.train_iteration(runner.init_state(0))
+    path = checkpoint.save_state(str(tmp_path), runner.checkpoint(state), 1)
+    restored = runner.load_checkpoint(runner.init_state(1),
+                                      checkpoint.restore_state(path, runner.device))
+    states = [s for st in restored.actors + [restored.critic]
+              for s in st.opt.adam.state.values()]
+    assert states and all(s["step"].device.type == "cpu" for s in states)
+    assert all(s["exp_avg"].device.type == "cuda" for s in states)

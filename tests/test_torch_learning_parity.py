@@ -212,3 +212,47 @@ def test_script_end_to_end_on_the_cpu(tmp_path):
             len(parity.RUNS[name]["record"])
     assert json.loads(out.stdout.splitlines()[-1]) == {
         "verdicts": {name: "cut" for name in runs}, "failed": []}
+
+
+def test_table_card_column_says_ranks_and_cards(tmp_path):
+    """A record without ``ranks`` (the committed one-card runs) keeps its card as
+    it was; a run over four ranks on four cards says so."""
+    name = "halfcheetah_6x1_happo"
+    base = dict(at_record={"3997696": 4.0}, env_steps_per_s=1.0, wall_s=1.0, concurrent=3,
+                card="NVIDIA H100 80GB HBM3, 700.00 W", platform="cuda",
+                gae_launches_per_iteration=1.0,
+                gae_in_situ=dict(max_abs_err=0.0, max_abs_return=1.0))
+    (tmp_path / f"{name}_s1.json").write_text(json.dumps(dict(base, seed=1)))
+    text, _ = parity.table(str(tmp_path), [name])
+    assert text.splitlines()[-1].endswith("| NVIDIA H100 80GB HBM3, 700.00 W |")
+    (tmp_path / f"{name}_s1.json").write_text(json.dumps(dict(base, seed=1, ranks=4, cards=4)))
+    text, _ = parity.table(str(tmp_path), [name])
+    assert text.splitlines()[-1].endswith(
+        "| 4 ranks on 4 cards: NVIDIA H100 80GB HBM3, 700.00 W |")
+    committed, _ = parity.table(str(ROOT / "validation_torch"), list(parity.RUNS))
+    assert all(row.endswith("| NVIDIA H100 80GB HBM3, 700.00 W |")
+               for row in committed.splitlines()[2:])
+
+
+def test_script_trains_a_run_over_two_ranks_on_the_cpu(tmp_path):
+    """``--ranks 2``: one child process a rank (``--num_processes 2``),
+    rank 0 alone writing the record, which says 2 ranks; each rank holds
+    its GAE at its own columns (b = 4 / 2)."""
+    name = "halfcheetah_6x1_happo"
+    tiny = ["--n_rollout_threads", "4", "--episode_length", "20", "--hidden_sizes", "[8, 8]",
+            "--episode_limit", "30", "--ppo_epoch", "1", "--critic_epoch", "1"]
+    out = subprocess.run(
+        [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", name, "--seeds", "1",
+         "--ranks", "2", "--iterations", "1", "--out", str(tmp_path / "out"),
+         "--log_dir", str(tmp_path / "runs"), "--", *tiny, "--use_eval", "False"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert sorted(p.name for p in (tmp_path / "out").glob("*.json")) == [f"{name}_s1.json"]
+    rec = json.loads((tmp_path / "out" / f"{name}_s1.json").read_text())
+    assert (rec["ranks"], rec["cards"], rec["iterations"]) == (2, 0, 1)
+    assert (rec["gae_in_situ"]["T"], rec["gae_in_situ"]["b"]) == (20, 2)
+    assert "--num_processes" in rec["argv"] and "--process_id" in rec["argv"]
+    rank1 = (tmp_path / "runs" / f"{name}_s1_rank1.log").read_text()
+    assert "a rank of 2, 1 iterations" in rank1 and "T=20, b=2" in rank1
+    assert "| 2 ranks on the CPU |" in out.stdout

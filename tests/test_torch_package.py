@@ -113,6 +113,29 @@ def test_learning_parity_script_and_chip_smoke_import_without_jax():
     assert out.stdout.split() == ["5"]
 
 
+def test_multicard_script_imports_without_jax():
+    """``scripts/torch_multicard.py`` (and ``chip_smoke.py`` beneath it)
+    imports with JAX, flax, optax and harl_tpu made unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "harl_tpu"):
+            sys.modules[name] = None
+        from scripts import torch_multicard
+        torch_multicard.dryrun_workloads(4)
+        torch_multicard.weak_workloads("cpu", 2)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "harl_tpu")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print(sorted(torch_multicard.allreduce_sizes("cpu")))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["['halfcheetah_actor_64x64',", "'hasac_critic_256x256',",
+                                  "'one']"]
+
+
 @pytest.mark.parametrize("env,env_args", [
     ("football_jax", {}), ("lag_jax", {}),
     ("mamujoco_jax", {"scenario": "manyagent_swimmer"}),

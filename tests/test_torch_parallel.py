@@ -8,8 +8,9 @@ runs on two spawned ranks (``parallel/launch.py``, a free port, a timeout)
 and is held against the one-rank port run of this process: discrete
 outputs exactly, floats at RTOL/ATOL, and the ranks' replicas (networks,
 optimizer moments, ValueNorm, replay buffer) bitwise equal. One HAPPO
-iteration at W=2, with the JAX draws replayed, is held against JAX's
-``_train_iteration`` on a two-device mesh at the runner tolerances; the
+iteration at W=2 and at W=4, with the JAX draws replayed, is held against
+JAX's ``_train_iteration`` on a mesh of as many devices at the runner
+tolerances; the
 CLI runs two ranks by spawning (``--n_devices 2``) and as two hosts
 (``--num_processes 2``).
 """
@@ -226,6 +227,18 @@ def _replayed_rank(mesh, queue, weights):
 
 
 def test_two_ranks_match_jax_on_a_two_device_mesh():
+    _match_jax_on_a_mesh(2)
+
+
+def test_four_ranks_match_jax_on_a_four_device_mesh():
+    """Two envs a rank: JAX's four-device CPU mesh against four gloo ranks."""
+    _match_jax_on_a_mesh(4)
+
+
+def _match_jax_on_a_mesh(world):
+    """One HAPPO iteration at the global batch JB on ``world`` ranks, with
+    the JAX draws replayed, against JAX's ``_train_iteration`` on a mesh of
+    ``world`` CPU devices (``tests/conftest.py`` gives eight)."""
     import jax
 
     from harl_tpu.parallel.mesh import make_mesh, shard_train_state
@@ -262,9 +275,10 @@ def test_two_ranks_match_jax_on_a_two_device_mesh():
     # JAX's data parallelism: the state sharded over two devices, returns
     # by the associative scan, as OnPolicyRunner.run(mesh=…) sets them
     jr.returns_impl = "assoc"
-    js2, jm = jr._train_iteration(shard_train_state(js, make_mesh(2), JB))
+    js2, jm = jr._train_iteration(shard_train_state(js, make_mesh(world), JB))
 
-    ranks = spawn_ranks(_replayed_rank, WORLD, (queue, weights), timeout_s=180)
+    ranks = spawn_ranks(_replayed_rank, world, (queue, weights), timeout_s=180)
+    assert len(ranks) == world
 
     def close(a, b, rtol=DATA_RTOL, atol=DATA_ATOL):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
