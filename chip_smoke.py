@@ -6,7 +6,7 @@
 Run from the root of the repository, on a host with one CUDA device, the CUDA
 toolkit (``nvcc``) and ``nvidia-smi``. Phases, each of which raises on failure,
 run in the order 1-4, 10, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-20, 21, 22, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
+20, 21, 22, 23, then the torch.profiler sessions of 10, 6, 8, 16, 17 and 18: a profiler
 session leaves the process slower, so every timed run comes before the
 first one.
 
@@ -193,6 +193,25 @@ first one.
    phase 19 (b), GAE held against its plain version on each rank's columns
    (T=32, b=1024; T=70, b=320). NCCL between cards is the script's own
    run on four.
+23. a replay ring of the largest kind: the tuned 8m_vs_9m FP HASAC
+   config's runner (``REPLAY_MAP``) with its whole 1,000,000-row ring
+   (29.9 GiB; with 10m_vs_11m's 49.1 GiB ring the phase took 200.7 s and
+   the whole script 1,037 s of its 1,200 on an H100 host, so
+   ``scripts/torch_replay_scale.py`` restores that ring and MMM2's), its
+   bytes predicted (``ring_nbytes``) and refused with the card's free
+   memory less; a warmup cut to 1,000 env-steps and one block; a
+   checkpoint written to a memory file (after checking that the host has
+   the memory for it: the card's host caps a run's disk writes at 45 GiB,
+   and the earlier phases' off-policy runs write checkpoints of their rings
+   there, ~29 GiB by ``ring_nbytes``), one more
+   collect block, then the checkpoint restored in place by the runner's
+   ``restore`` (``measured_restore``) with the card filled but for 4 GiB,
+   so that the old restore's second ring could not land: the ring's
+   tensors keep their storage, the peak device memory during the restore
+   (the ballast aside) stays below the ring plus 4 GiB, and every column
+   equals the file's bytes in 1 GiB chunks. Then 1 GiB of the file is
+   copied onto the card straight and through the restore's pinned stages,
+   each timed; the memory file is closed.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -201,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -1168,19 +1188,19 @@ def drive_cli_hatrpo(card: str, log_dir: str, floor: dict, shrink: dict = None) 
         HATRPOActor.update = orig_update
     resumed_launches = read_launches()
     (_, runner, _, restored), = restores.calls
-    saved = checkpoint.restore_state(checkpoint.latest_checkpoint(run_dir), runner.device)
+    saved = checkpoint.restore_state(checkpoint.latest_checkpoint(run_dir))
     saved_nets = [s["net"] for s in saved["state"]["actors"] + [saved["state"]["critic"]]]
     fresh_runner = OnPolicyRunner(runner.args, runner.algo_args, runner.env_args, device=device)
     fresh = net_copies(fresh_runner.restore(fresh_runner.init_state(7), run_dir))
     for nets in (restored, fresh):   # the resumed run's, and a fresh state's
         for sd, sd_saved in zip(nets, saved_nets):
             for k, v in sd.items():
-                if not torch.equal(v, sd_saved[k]):
+                if not torch.equal(v, sd_saved[k].to(v.device)):
                     raise AssertionError(f"restore: {k} differs from the checkpoint")
     if len(its2.calls) != 1 or resumed_launches["gae"] != 1:
         raise AssertionError(f"resumed run: {len(its2.calls)} iterations, {resumed_launches}")
     read_run(run2, 5)
-    trained = checkpoint.restore_state(checkpoint.latest_checkpoint(run2), runner.device)
+    trained = checkpoint.restore_state(checkpoint.latest_checkpoint(run2))
     if all(torch.equal(v, trained["state"]["actors"][0]["net"][k])
            for k, v in saved["state"]["actors"][0]["net"].items()):
         raise AssertionError("resumed run: the actor did not move")
@@ -3066,6 +3086,229 @@ def drive_multicard_paths(card: str, floor: dict, log_dir: str) -> tuple:
     return by_path, in_situ
 
 
+# ------------------------------------------- the largest replay ring (phase 23)
+REPLAY_MAP = "8m_vs_9m"
+REPLAY_WARMUP = 1000
+GIB = 2 ** 30
+# a restore may allocate this much beyond the live ring and networks
+RESTORE_HEADROOM = 4 * GIB
+# the ring is held against the file in chunks of at most this many bytes
+CHUNK_BYTES = GIB
+
+
+def equal_in_chunks(live, saved, chunk_bytes: int = CHUNK_BYTES) -> bool:
+    """``live`` (on its device) and ``saved`` (a CPU tensor, memory-mapped)
+    hold the same bytes, compared ``chunk_bytes`` at a time on ``live``'s
+    device (each chunk brought there by ``checkpoint.copy_to_device``)."""
+    from harl_tpu_torch.utils.checkpoint import copy_to_device
+
+    a = live.reshape(-1).view(torch.uint8)
+    b = saved.reshape(-1).view(torch.uint8)
+    if a.numel() != b.numel():
+        return False
+    chunk = torch.empty(min(chunk_bytes, a.numel()), dtype=torch.uint8, device=a.device)
+    for lo in range(0, a.numel(), chunk_bytes):
+        n = min(chunk_bytes, a.numel() - lo)
+        copy_to_device(chunk[:n], b[lo:lo + n])
+        if not torch.equal(a[lo:lo + n], chunk[:n]):
+            return False
+    return True
+
+
+def measured_restore(restore, runner, state, model_dir: str, fill_card: bool = False) -> tuple:
+    """(the state, the restore's record) of ``restore(state, model_dir)``
+    (``OffPolicyRunner.restore`` or a wrapper of it): its seconds, the
+    peak device memory during it with the peak reset just before, the
+    card's free memory as it starts, the ring's bytes, whether every ring
+    tensor kept its storage, and whether each column equals the checkpoint
+    file's bytes (``equal_in_chunks``). With ``fill_card``, a ballast holds
+    all of the card's free memory but ``RESTORE_HEADROOM`` during the
+    restore, so that no second ring could land beside the live one; the
+    record's ``ballast_bytes`` counts it."""
+    from harl_tpu_torch.buffers.off_policy import ring_columns
+    from harl_tpu_torch.utils import checkpoint
+
+    device = runner.device
+    cuda = device.type == "cuda"
+    ptrs = [t.data_ptr() for t in state.buffer.tensors()]
+    ballast = None
+    sync(device)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if fill_card:
+            spare = torch.cuda.mem_get_info(device)[0] - RESTORE_HEADROOM
+            ballast = torch.empty(max(spare, 0), dtype=torch.uint8, device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device) if cuda else None
+    card_free = torch.cuda.mem_get_info(device)[0] if cuda else None
+    t0 = time.perf_counter()
+    state = restore(state, model_dir)
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    ballast_bytes = 0 if ballast is None else ballast.nbytes
+    del ballast
+    ring = state.buffer.tensors()
+    path = checkpoint.latest_checkpoint(model_dir) or model_dir
+    t0 = time.perf_counter()
+    saved = checkpoint.restore_state(path)["state"]["buffer"]
+    columns = ring_columns(saved.get)
+    equal = len(columns) == len(ring) and all(equal_in_chunks(a, b)
+                                              for a, b in zip(ring, columns))
+    del saved, columns
+    rec = dict(path=path, restore_s=restore_s, ring_bytes=state.buffer.nbytes,
+               allocated_before_bytes=before, card_free_bytes=card_free,
+               ballast_bytes=ballast_bytes, peak_bytes=peak,
+               peak_over_before_bytes=None if peak is None else peak - before,
+               storage_kept=[t.data_ptr() for t in ring] == ptrs, ring_equals_file=equal,
+               compare_s=time.perf_counter() - t0, ring_rows=state.buffer.cur_size)
+    return state, rec
+
+
+def check_restore(rec: dict, what: str) -> None:
+    """Raise unless the restore kept the ring's storage, stayed below the
+    ring plus ``RESTORE_HEADROOM`` on the card (its ballast aside) and
+    restored the file's bytes."""
+    if not rec["storage_kept"]:
+        raise AssertionError(f"{what}: a ring tensor changed storage in the restore")
+    if not rec["ring_equals_file"]:
+        raise AssertionError(f"{what}: the restored ring differs from the checkpoint's bytes")
+    if rec["peak_bytes"] is not None and \
+            rec["peak_bytes"] - rec["ballast_bytes"] >= rec["ring_bytes"] + RESTORE_HEADROOM:
+        raise AssertionError(f"{what}: {rec['peak_bytes'] - rec['ballast_bytes']} bytes on "
+                             f"the card during the restore (its ballast of "
+                             f"{rec['ballast_bytes']} aside), the ring {rec['ring_bytes']} "
+                             f"+ {RESTORE_HEADROOM}")
+
+
+def host_available_bytes() -> int:
+    """The host memory the kernel counts as available (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def copy_rates(path: str, device) -> tuple:
+    """GiB/s of two host-to-card copies of ``CHUNK_BYTES`` of the largest
+    ring column of the checkpoint at ``path``, each from a mapping of its
+    own: straight from the mapped, pageable file (``copy_``), and through
+    ``checkpoint.copy_to_device``'s pinned stages."""
+    from harl_tpu_torch.buffers.off_policy import ring_columns
+    from harl_tpu_torch.utils import checkpoint
+
+    rates = []
+    dst = torch.empty(CHUNK_BYTES, dtype=torch.uint8, device=device)
+    for copy in (lambda d, s: d.copy_(s), checkpoint.copy_to_device):
+        saved = max(ring_columns(checkpoint.restore_state(path)["state"]["buffer"].get),
+                    key=lambda t: t.nbytes)
+        src = saved.reshape(-1).view(torch.uint8)[:CHUNK_BYTES]
+        sync(device)
+        t0 = time.perf_counter()
+        copy(dst[:src.numel()], src)
+        sync(device)
+        rates.append(src.numel() / GIB / (time.perf_counter() - t0))
+        del saved, src
+    return tuple(rates)
+
+
+def drive_replay_scale_path(card: str, log_dir: str, device: str = "cuda",
+                            shrink: tuple = ()) -> dict:
+    """Phase 23: the tuned ``REPLAY_MAP`` FP HASAC runner with its full ring (``shrink``,
+    words of argv, narrows it for a rehearsal on the CPU), a warmup of
+    ``REPLAY_WARMUP`` env-steps and one block, a checkpoint, one more
+    collect block, and the checkpoint restored in place by the runner's
+    ``restore`` with ``measured_restore`` (the card filled but for
+    ``RESTORE_HEADROOM``, less than a ring), held by ``check_restore``.
+    The checkpoint is a memory file (``memfd``), reached through a
+    ``ckpt_<rows>/state.pt`` link under ``log_dir`` and gone when it is
+    closed or the process ends: the host writes nothing of the ring to
+    disk, whose writes the H100 hosts this phase runs on cap at 45 GiB a
+    run. Returns the launches (none: the path is off-policy)."""
+    from harl_tpu_torch import train
+    from harl_tpu_torch.buffers.off_policy import require_room
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils import checkpoint
+
+    args, algo_args, env_args = train.resolve_args(
+        ["--load_config", f"tuned_configs/smaclite/{REPLAY_MAP}/hasac/config.json",
+         "--warmup_steps", str(REPLAY_WARMUP), *shrink])
+    t_all = time.perf_counter()
+    runner = OffPolicyRunner(args, algo_args, env_args, device=device)
+    need = runner.ring_nbytes()
+    cuda = runner.device.type == "cuda"
+    if cuda:
+        # the earlier phases' cached blocks go back to the card first
+        gc.collect()
+        torch.cuda.empty_cache()
+        require_room(need, torch.cuda.mem_get_info(runner.device)[0],
+                     "the card's free memory for the replay ring")
+    zero_launches()
+    t0 = time.perf_counter()
+    state = runner.init_state(1)
+    sync(runner.device)
+    init_s = time.perf_counter() - t0
+    if state.buffer.nbytes != need:
+        raise AssertionError(f"phase 23: the ring holds {state.buffer.nbytes} bytes, "
+                             f"{need} predicted")
+    t0 = time.perf_counter()
+    state = runner.warmup_block(state)
+    state, _ = runner.collect_block(state)
+    state, metrics = runner.train_block(state)
+    sync(runner.device)
+    block_s = time.perf_counter() - t0
+    if not math.isfinite(float(metrics["critic_loss"])):
+        raise AssertionError(f"phase 23: critic loss {metrics['critic_loss']}")
+    launches = read_launches()
+    rows = state.buffer.cur_size
+    require_room(need, host_available_bytes(),
+                 "the host's available memory for the replay ring's checkpoint")
+    fd = os.memfd_create("chip_smoke_ring")
+    try:
+        file = f"/proc/self/fd/{fd}"
+        t0 = time.perf_counter()
+        torch.save(runner.checkpoint(state), file)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.fstat(fd).st_size
+        path = os.path.join(log_dir, f"ckpt_{rows}")
+        os.makedirs(path)
+        os.symlink(file, os.path.join(path, checkpoint.STATE_FILE))
+        # the ring moves on past the checkpoint, so the restore has rows to undo
+        state, _ = runner.collect_block(state)
+        if state.buffer.cur_size == rows:
+            raise AssertionError("phase 23: the collect block inserted no row")
+        state, rec = measured_restore(runner.restore, runner, state, log_dir, fill_card=True)
+        check_restore(rec, "phase 23")
+        if state.buffer.cur_size != rows:
+            raise AssertionError(f"phase 23: {state.buffer.cur_size} rows restored, "
+                                 f"{rows} saved")
+        if cuda and rec["card_free_bytes"] >= need:
+            raise AssertionError(f"phase 23: {rec['card_free_bytes']} bytes free on the card "
+                                 f"during the restore, room for a second ring of {need}")
+        rates = copy_rates(path, runner.device) if cuda else (None, None)
+    finally:
+        shutil.rmtree(os.path.join(log_dir, f"ckpt_{rows}"), ignore_errors=True)
+        gc.collect()
+        os.close(fd)
+    peak_reserved = torch.cuda.max_memory_reserved(runner.device) if cuda else None
+    print(f"replay_scale {REPLAY_MAP} FP HASAC (its tuned config, warmup cut to "
+          f"{runner.warmup_steps}): ring {need / GIB:.4f} GiB predicted, "
+          f"{state.buffer.nbytes / GIB:.4f} allocated in {init_s:.2f} s; warmup and one "
+          f"block {block_s:.2f} s; checkpoint {file_bytes} bytes written to a memory file in "
+          f"{write_s:.2f} s; restored in place in {rec['restore_s']:.2f} s, "
+          f"{rec['card_free_bytes']} bytes free on the card as it started (a ballast of "
+          f"{rec['ballast_bytes']}), a peak of {rec['peak_bytes']} bytes on the card "
+          f"({rec['peak_over_before_bytes']} over the {rec['allocated_before_bytes']} before "
+          f"it, bound ring + {RESTORE_HEADROOM} beside the ballast; peak reserved "
+          f"{peak_reserved}), storage kept, ring equal to the file's bytes in 1 GiB chunks "
+          f"({rec['compare_s']:.2f} s); host to card from the mapped file, 1 GiB: pageable "
+          f"{rates[0]} GiB/s, pinned stages {rates[1]} GiB/s; "
+          f"{time.perf_counter() - t_all:.1f} s in all on {card}", flush=True)
+    return {"replay_scale_" + REPLAY_MAP: launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -3135,6 +3378,11 @@ def main() -> int:
         multicard_paths, multicard_gae = drive_multicard_paths(card, floor, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        replay_paths = drive_replay_scale_path(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -3144,7 +3392,8 @@ def main() -> int:
     slice9_profile()
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
-               **slice9, **dp_paths, **host_paths, **parity_paths, **multicard_paths}
+               **slice9, **dp_paths, **host_paths, **parity_paths, **multicard_paths,
+               **replay_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:

@@ -21,6 +21,14 @@ The FP layout (``ReplayBufferFP``, off_policy_buffer_fp.py) gives the
 env-level fields — state, next state, rewards, dones, terms — an agent axis
 (S, N, ·). Each agent walks its own n steps over its own end flags, and a
 sample's env-level fields are agent-major (N·batch, ·) concatenations.
+
+Every column is float32, so a ring of S rows holds
+4·S·(E·(2·ds + 3) + 2·Σdo + Σda + N + 2·Σn) bytes, with E = 1 env-level row
+a step (EP) or N (FP): state and next state, rewards, dones and terms;
+obs and next obs, actions and valid masks per agent; availability before
+and after the step under discrete actions. ``ring_nbytes`` gives it before
+anything is allocated, ``nbytes`` of a live ring, and ``require_room``
+refuses a ring larger than the room left.
 """
 from __future__ import annotations
 
@@ -46,8 +54,28 @@ class Sample(NamedTuple):
     next_available_actions: Optional[List[torch.Tensor]] = None
 
 
+ENV_LEVEL = ("share_obs", "next_share_obs", "rewards", "dones", "terms")
 PER_AGENT = ("obs", "next_obs", "actions", "valid_transitions")
 AVAIL = ("available_actions", "next_available_actions")
+GIB = 2 ** 30
+
+
+def ring_columns(get) -> List[torch.Tensor]:
+    """A ring's columns in one order, each field read with ``get(name)``:
+    ``getattr`` of a live ring, or ``dict.get`` of its checkpoint payload."""
+    out = [get(k) for k in ENV_LEVEL]
+    for k in PER_AGENT + AVAIL:
+        if get(k) is not None:
+            out += list(get(k))
+    return out
+
+
+def require_room(need: int, free: int, what: str) -> None:
+    """Raise ``ValueError`` naming both sizes where ``need`` bytes exceed
+    the ``free`` bytes of ``what`` (a card's memory, a disk)."""
+    if need > free:
+        raise ValueError(f"{what}: {need} bytes ({need / GIB:.2f} GiB) needed, "
+                         f"{free} bytes ({free / GIB:.2f} GiB) free")
 
 
 class ReplayBuffer:
@@ -81,6 +109,24 @@ class ReplayBuffer:
         self.idx = 0        # next row to write
         self.cur_size = 0   # rows written so far, at most S
 
+    @classmethod
+    def ring_nbytes(cls, buffer_size: int, share_obs_dim: int, obs_dims: Sequence[int],
+                    act_dims: Sequence[int], avail_dims: Optional[Sequence[int]] = None,
+                    env_rows: int = 1) -> int:
+        """The bytes of a ring of these dimensions (the module's formula),
+        ``env_rows`` env-level rows a step."""
+        per_row = (env_rows * (2 * share_obs_dim + 3) + 2 * sum(obs_dims) + sum(act_dims)
+                   + len(obs_dims) + 2 * sum(avail_dims or ()))
+        return 4 * buffer_size * per_row
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every column of the ring (``ring_columns``' order)."""
+        return ring_columns(lambda k: getattr(self, k))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.tensors())
+
     def insert(self, batch: dict) -> None:
         """Write one vectorised step: ``batch`` has share_obs, next_share_obs,
         rewards, dones, terms (B, ·), or (B, N, ·) under FP, and per-agent
@@ -91,8 +137,7 @@ class ReplayBuffer:
         # rows (idx + arange(B)) % S as at most two slices
         first = min(B, S - self.idx)
         spans = [(self.idx, 0, first)] + ([(0, first, B - first)] if first < B else [])
-        pairs = [(getattr(self, k), batch[k]) for k in
-                 ("share_obs", "next_share_obs", "rewards", "dones", "terms")]
+        pairs = [(getattr(self, k), batch[k]) for k in ENV_LEVEL]
         for k in PER_AGENT + (AVAIL if self.available_actions is not None else ()):
             pairs += list(zip(getattr(self, k), batch[k]))
         for dst, src in pairs:
@@ -161,6 +206,14 @@ class ReplayBufferFP(ReplayBuffer):
                  avail_dims: Optional[Sequence[int]] = None):
         self.env_axes = (n_agents,)
         super().__init__(buffer_size, share_obs_dim, obs_dims, act_dims, device, avail_dims)
+
+    @classmethod
+    def ring_nbytes(cls, buffer_size: int, n_agents: int, share_obs_dim: int,
+                    obs_dims: Sequence[int], act_dims: Sequence[int],
+                    avail_dims: Optional[Sequence[int]] = None) -> int:
+        """The bytes of an FP ring: N env-level rows a step."""
+        return ReplayBuffer.ring_nbytes(buffer_size, share_obs_dim, obs_dims, act_dims,
+                                        avail_dims, env_rows=n_agents)
 
     def sample(self, batch_size: int, n_step: int, gamma: float, n_threads: int,
                noise=None, start: Optional[torch.Tensor] = None) -> Sample:

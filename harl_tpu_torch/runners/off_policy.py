@@ -260,15 +260,26 @@ class OffPolicyRunner:
             actors.append(st)
         critic = self.critic.init(self.generator, self.mesh)
         B, N = self.n_envs, self.n_agents
-        dims = (self.share_obs_dim, self.obs_dims, self.act_dims, self.device,
-                [sp.n for sp in self.act_spaces] if self.discrete else None)
-        buf = ReplayBufferFP(self.buffer_size, N, *dims) if self.fp else ReplayBuffer(
-            self.buffer_size, *dims)
+        ring, dims, avail = self._ring_spec()
+        buf = ring(*dims, device=self.device, avail_dims=avail)
         carry = OffRolloutCarry(env_state=env_state, obs=ts.obs, share_obs=self._state(ts),
                                 avail=ts.available_actions,
                                 agent_deaths=torch.zeros((B, N, 1), device=self.device),
                                 ep_ret=torch.zeros(B, device=self.device))
         return OffPolicyState(actors, critic, buf, carry)
+
+    def _ring_spec(self) -> tuple:
+        """(the replay ring's class, its dimensions, its availability widths
+        or None), as ``init_state`` builds it."""
+        dims = ((self.buffer_size,) + ((self.n_agents,) if self.fp else ())
+                + (self.share_obs_dim, self.obs_dims, self.act_dims))
+        avail = [sp.n for sp in self.act_spaces] if self.discrete else None
+        return (ReplayBufferFP if self.fp else ReplayBuffer), dims, avail
+
+    def ring_nbytes(self) -> int:
+        """The bytes of the replay ring that ``init_state`` allocates."""
+        ring, dims, avail = self._ring_spec()
+        return ring.ring_nbytes(*dims, avail_dims=avail)
 
     # --------------------------------------------------------------- helpers
     def _alpha(self, st) -> Any:
@@ -709,10 +720,14 @@ class OffPolicyRunner:
         return state
 
     def restore(self, state: OffPolicyState, model_dir: str) -> OffPolicyState:
-        """Resume the full state from the latest checkpoint under ``model_dir``."""
+        """Resume the full state from the latest checkpoint under ``model_dir``.
+        The file is memory-mapped and the replay ring's tensors are copied
+        into in place (``utils/checkpoint.py``), so the device holds one
+        ring throughout; the JAX runner restores into a target of the live
+        state's shapes (off_policy.py:955-966)."""
         path = checkpoint.latest_checkpoint(model_dir) or model_dir
         print(f"restoring train state from {path}")
-        return self.load_checkpoint(state, checkpoint.restore_state(path, self.device))
+        return self.load_checkpoint(state, checkpoint.restore_state(path))
 
     # ------------------------------------------------------------------- run
     def run(self, seed: int = 1, logger=None, save_dir: Optional[str] = None, log_fn=None,

@@ -843,11 +843,11 @@ class OnPolicyRunner:
         path = checkpoint.latest_checkpoint(model_dir) or model_dir
         print(f"restoring train state from {path}")
         try:
-            return self.load_checkpoint(state, checkpoint.restore_state(path, self.device))
+            return self.load_checkpoint(state, checkpoint.restore_state(path))
         except ValueError as e:
             print(f"full-state resume structure mismatch ({e}); falling back to a "
                   "params-only restore (networks and ValueNorm, fresh optimizers)")
-            return checkpoint.restore_params_into(path, state, self.device)
+            return checkpoint.restore_params_into(path, state)
 
     # ------------------------------------------------------------------- run
     def run(self, seed: int = 1, log_fn=None, logger=None, save_dir: Optional[str] = None,

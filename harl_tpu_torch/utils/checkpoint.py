@@ -12,6 +12,18 @@ of the same runner first (every key, length and tensor shape) and raises
 the payload in, onto the live state's device. Objects shared by several
 agents (``share_param``) appear once in a state, so they are saved once.
 
+A tensor that is the whole of a storage no other tensor of the live state
+shares (the replay ring's columns) is restored in place: the saved bytes
+are copied into it, so a resume allocates nothing of its size on the
+device. ``restore_state`` reads the file as memory-mapped CPU tensors, so
+the payload holds no second copy of the state on the device either; a
+resume of a state of G bytes then peaks at G on the card
+(``torch.load(map_location=device)`` with tensors replaced peaked at 2G).
+A copy from the host onto the card goes through two pinned buffers of
+``STAGE_BYTES`` (``copy_to_device``): a copy straight from the mapped,
+pageable file moved 2-2.5x slower on an H100's host (``chip_smoke.py``
+phase 23 times both).
+
 Each ``ckpt_<step>`` is a directory holding ``state.pt``.
 """
 from __future__ import annotations
@@ -25,6 +37,8 @@ import torch
 from torch import nn
 
 STATE_FILE = "state.pt"
+# each of the two pinned buffers a host-to-card copy is staged through
+STAGE_BYTES = 64 * 2 ** 20
 
 
 def _is_namedtuple(x) -> bool:
@@ -122,19 +136,79 @@ def _groups(sd) -> list:
 def load_payload(live: Any, saved: Any) -> Any:
     """Copy ``saved`` into ``live`` (checked first); returns the live state.
     Modules, optimizers, generators, dataclasses and objects are loaded in
-    place; tensors are replaced, except leaves that require grad (an
-    optimizer holds them), which are copied into."""
+    place. A tensor is copied into where it requires grad (an optimizer
+    holds it) or owns its storage alone (``sole_owners``); any other is
+    replaced by a copy of the saved one on its device."""
     check_payload(live, saved)
-    return _load(live, saved)
+    return _load(live, saved, sole_owners(live))
 
 
-def _load(live: Any, saved: Any) -> Any:
+def _storage_key(t: torch.Tensor) -> tuple:
+    return t.device, t.untyped_storage().data_ptr()
+
+
+def sole_owners(live: Any) -> set:
+    """The storage keys of the live state's tensors that are the whole of a
+    storage no other tensor of the state shares: every tensor of its
+    payload (``to_payload``: modules' parameters and buffers, optimizer
+    moments, each leaf) is counted by storage, so a copy into one of these
+    writes no other tensor of the state, and no two copies write one
+    storage. Empty tensors are left out (they share the null pointer)."""
+    counts: dict = {}
+    whole = set()
+
+    def visit(x):
+        if isinstance(x, torch.Tensor):
+            key = _storage_key(x)
+            counts[key] = counts.get(key, 0) + 1
+            if (x.numel() and x.is_contiguous() and x.storage_offset() == 0
+                    and x.untyped_storage().nbytes() == x.numel() * x.element_size()):
+                whole.add(key)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                visit(v)
+
+    visit(to_payload(live))
+    return {k for k in whole if counts[k] == 1}
+
+
+def copy_to_device(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; from a host tensor into a contiguous one on a CUDA
+    card larger than one stage, through two pinned buffers of
+    ``STAGE_BYTES`` in turn: each chunk is copied on the host into one
+    while the card copies the other, and nothing of ``dst``'s size is
+    allocated."""
+    if not (dst.is_cuda and src.device.type == "cpu" and dst.is_contiguous()
+            and dst.nbytes > STAGE_BYTES):
+        dst.copy_(src)
+        return
+    a = dst.view(-1).view(torch.uint8)
+    b = src.contiguous().view(-1).view(torch.uint8)
+    stages = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    done = [None, None]
+    for k, lo in enumerate(range(0, a.numel(), STAGE_BYTES)):
+        i, n = k % 2, min(STAGE_BYTES, a.numel() - lo)
+        if done[i] is not None:
+            done[i].synchronize()      # the card has read this stage
+        stages[i][:n].copy_(b[lo:lo + n])
+        a[lo:lo + n].copy_(stages[i][:n], non_blocking=True)
+        done[i] = torch.cuda.Event()
+        done[i].record()
+    for ev in done:
+        if ev is not None:
+            ev.synchronize()
+
+
+def _load(live: Any, saved: Any, owners: set) -> Any:
     if isinstance(live, torch.Tensor):
-        if live.requires_grad:
+        if live.requires_grad or _storage_key(live) in owners:
             with torch.no_grad():
-                live.copy_(saved)
+                copy_to_device(live, saved)
             return live
-        return saved.to(live.device)
+        return saved.to(live.device, copy=True)
     if isinstance(live, torch.Generator):
         live.set_state(saved.cpu())
         return live
@@ -148,15 +222,16 @@ def _load(live: Any, saved: Any) -> Any:
         live.load_state_dict(saved)
         return live
     if _is_namedtuple(live):
-        return type(live)(**{k: _load(v, saved[k]) for k, v in live._asdict().items()})
+        return type(live)(**{k: _load(v, saved[k], owners)
+                             for k, v in live._asdict().items()})
     if isinstance(live, (list, tuple)):
-        return type(live)(_load(a, b) for a, b in zip(live, saved))
+        return type(live)(_load(a, b, owners) for a, b in zip(live, saved))
     if isinstance(live, dict):
-        return {k: _load(v, saved[k]) for k, v in live.items()}
+        return {k: _load(v, saved[k], owners) for k, v in live.items()}
     if live is None or isinstance(live, (bool, int, float, str)):
         return saved
     for k, v in _fields(live).items():
-        setattr(live, k, _load(v, saved[k]))
+        setattr(live, k, _load(v, saved[k], owners))
     return live
 
 
@@ -164,10 +239,20 @@ def steps_on_cpu(opt: torch.optim.Optimizer, sd: dict) -> dict:
     """``sd`` (a state dict of ``opt``) with its step counts on the CPU,
     where torch keeps them for an optimizer that is neither capturable nor
     fused: a payload restored onto the card brings them there, and Adam
-    then reads a count on the card with a host sync a parameter a step."""
-    if any(g.get("capturable") or g.get("fused") for g in opt.param_groups):
-        return sd
-    state = {k: {**v, "step": v["step"].cpu()} if torch.is_tensor(v.get("step")) else v
+    then reads a count on the card with a host sync a parameter a step.
+    Every tensor of its state that lies on the CPU is a copy of its own,
+    so that nothing loaded from a memory-mapped payload keeps the file
+    mapped (the file of a replay ring may be pruned while the run goes on)."""
+    device_steps = any(g.get("capturable") or g.get("fused") for g in opt.param_groups)
+
+    def own(key, v):
+        if not torch.is_tensor(v):
+            return v
+        if key == "step" and not device_steps:
+            return v.to("cpu", copy=True)
+        return v.clone() if v.device.type == "cpu" else v
+
+    state = {k: {key: own(key, t) for key, t in v.items()}
              for k, v in sd.get("state", {}).items()}
     return {**sd, "state": state}
 
@@ -183,19 +268,22 @@ def save_state(save_dir: str, payload: dict, step: int = 0) -> str:
     return path
 
 
-def restore_state(path: str, device: torch.device) -> dict:
-    """The payload of the checkpoint directory ``path``, on ``device``."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
+def restore_state(path: str) -> dict:
+    """The payload of the checkpoint directory ``path``, as CPU tensors
+    mapped from the file: read as ``load_payload`` copies them onto the live
+    state's device, nothing of the state's size allocated there."""
+    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", mmap=True,
+                      weights_only=True)
 
 
-def restore_params_into(path: str, state: Any, device: torch.device) -> Any:
+def restore_params_into(path: str, state: Any) -> Any:
     """Params-only restore of an on-policy state, the reference's own
     ``model_dir`` semantics (on_policy_base_runner.py:742-763): every actor
     network, the critic network and the ValueNorm statistics (which must stay
     consistent with the restored critic head) are grafted onto the fresh
     ``state``; optimizers, the env carry and the generator stay fresh. This
     is the transfer case, where the full resume found a structure mismatch."""
-    saved = restore_state(path, device)["state"]
+    saved = restore_state(path)["state"]
     for st, s in zip(state.actors, saved["actors"]):
         st.net.load_state_dict(s["net"])
     state.critic.net.load_state_dict(saved["critic"]["net"])

@@ -10,8 +10,11 @@ with several seeds, and hold each run against its record.
 Run it from the root of the repository (the run table's paths are
 relative to it). ``RUNS`` holds one entry a run: the argv of the JAX command that produced
 the record (``scripts/r3_queue5.sh:12-21``; round 1 of ``VALIDATION.md``
-for HalfCheetah), the GAE shape the run gives the kernel, and the record
-itself, as read from ``validation/r3/*_won.csv`` or ``VALIDATION.md``
+for HalfCheetah HAPPO; ``scripts/r2_queue.sh:13`` for HalfCheetah HASAC,
+cut at the step where that run's time limit cut it), the GAE shape the
+run gives the kernel (None for the off-policy run, which launches none),
+and the record itself, as read from ``validation/r3/*_won.csv``,
+``validation/r2/cheetah6x1_hasac_train.csv`` or ``VALIDATION.md``
 (``tests/test_torch_learning_parity.py`` holds the two equal). Each run
 takes ``--seed s`` for every seed asked for; seed 1 is the JAX runs' seed.
 
@@ -26,27 +29,32 @@ holds its GAE launches and in-situ error, and the record says how many
 ranks and cards the run used (``ranks``, ``cards``; a record without them
 is one rank on one card). The runs use CUDA unless ``--platform cpu`` is given;
 without a CUDA device the script exits non-zero. ``--iterations N`` cuts
-every run to N iterations (a rate measurement or a rehearsal); the words
-after ``--`` are appended to every run's argv (narrow widths on the CPU).
+every run to N iterations, or N blocks of ``train_interval`` steps after
+the warmup for the off-policy run (a rate measurement or a rehearsal);
+the words after ``--`` are appended to every run's argv (narrow widths on
+the CPU).
 
 From each run's ``logs/progress.txt`` a child writes, into ``--out``,
-``<run>_s<seed>_{eval,won,mean_step_reward}.csv`` (``steps,value``, as
-``scripts/harvest_r3.py`` writes them; ``won`` from the evaluations' score
-rate, ``mean_step_reward`` from the training records) and
+``<run>_s<seed>_{eval,won,mean_step_reward,mean_episode_return}.csv``
+(``steps,value``, as ``scripts/harvest_r3.py`` writes them; ``won`` from
+the evaluations' score rate, the other two from the training records) and
 ``<run>_s<seed>.json``: the card's name and power limit (``nvidia-smi``),
 the run's wall time and env-steps/s over all of it (evaluations and
-checkpoints included), each iteration's and each evaluation's seconds,
-peak ``torch.cuda.max_memory_allocated`` and peak RSS, the GAE kernel's
+checkpoints included), each iteration's (off-policy: each collect and
+train block's) and each evaluation's seconds, peak
+``torch.cuda.max_memory_allocated`` and peak RSS, the GAE kernel's
 launches an iteration, its max |err| against ``gae_reference`` on the
 run's own inputs at the first iteration (bound: 1e-5 of the largest
 return) with its warm time and byte bound there, and the run's values at
-the record's steps.
+the record's steps. An off-policy run launches no GAE kernel: it must
+launch it 0 times, and records instead the replay ring's rows at the end,
+which must equal min(warmup + steps, buffer_size).
 
 The rule: a run **meets** its record when, at every step the record
 names, the median of the port's seeds is no lower than the record less a
 tolerance: 0.05 absolute for a score rate, 10 % of the record for
-HalfCheetah's ``mean_step_reward``. Higher than the record is fine: each
-record is one seed. A run whose seeds did not reach a record's step is
+HalfCheetah's ``mean_step_reward`` and for an episode return. Higher than
+the record is fine: each record is one seed. A run whose seeds did not reach a record's step is
 ``cut``. The script prints one row a run with each seed's value, the
 median, the record and the verdict, and exits non-zero if a child failed.
 """
@@ -103,8 +111,16 @@ RUNS = {
               "--num_env_steps", "4000000"),
         shape=(64, 1024), metric="mean_step_reward", record=((3997696, 4.0),),
         source="VALIDATION.md:575 (round 1)"),
+    # the JAX run's time limit cut it after 800 blocks of 1,000 env-steps:
+    # the last record at 10,000 (warmup) + 800 x 1,000
+    "halfcheetah_6x1_hasac": dict(
+        argv=("--load_config", "tuned_configs/mamujoco_jax/HalfCheetah-v2-6x1/hasac/config.json",
+              "--num_env_steps", "800000"),
+        shape=None, metric="mean_episode_return",
+        record=((210000, 2072.57), (410000, 5116.86), (610000, 5590.83), (810000, 5782.47)),
+        source="validation/r2/cheetah6x1_hasac_train.csv"),
 }
-# the score rate's tolerance (absolute) and mean_step_reward's (of the record)
+# the score rate's tolerance (absolute) and a reward's or return's (of the record)
 RATE_TOL = 0.05
 REWARD_TOL = 0.10
 # in-situ GAE: max |kernel - plain| at most this much of the largest return
@@ -135,26 +151,32 @@ def _chip_smoke():
 
 
 class Instruments:
-    """For the duration of a ``with``: each ``train_iteration``'s and each
-    evaluation's seconds, and on the first GAE call of the run the kernel
-    held against ``gae_reference`` on its own inputs (and, on CUDA, timed
-    warm; those launches are not counted)."""
+    """For the duration of a ``with``: each ``train_iteration``'s (each
+    off-policy collect and train block's) and each evaluation's seconds,
+    the replay ring's rows after the last train block, and on the first
+    GAE call of the run the kernel held against ``gae_reference`` on its
+    own inputs (and, on CUDA, timed warm; those launches are not counted)."""
 
     def __init__(self, device: str):
         self.device = device
-        self.iteration_s, self.eval_s, self.in_situ = [], [], None
+        self.iteration_s, self.eval_s, self.in_situ, self.ring_rows = [], [], None, None
+        self.collect_s, self.train_s = [], []
 
     def __enter__(self):
         import torch
 
         from harl_tpu_torch.ops import gae_kernels as K
-        from harl_tpu_torch.runners import on_policy
+        from harl_tpu_torch.runners import off_policy, on_policy
 
+        Off = off_policy.OffPolicyRunner
         self.saved = [(on_policy, "compute_gae", on_policy.compute_gae),
                       (on_policy.OnPolicyRunner, "train_iteration",
                        on_policy.OnPolicyRunner.train_iteration),
-                      (on_policy.OnPolicyRunner, "evaluate", on_policy.OnPolicyRunner.evaluate)]
-        (_, _, compute_gae), (_, _, train_iteration), (_, _, evaluate) = self.saved
+                      (on_policy.OnPolicyRunner, "evaluate", on_policy.OnPolicyRunner.evaluate),
+                      (Off, "collect_block", Off.collect_block),
+                      (Off, "train_block", Off.train_block), (Off, "evaluate", Off.evaluate)]
+        ((_, _, compute_gae), (_, _, train_iteration), (_, _, evaluate),
+         (_, _, collect_block), (_, _, train_block), (_, _, off_evaluate)) = self.saved
 
         def sync():
             if self.device == "cuda":
@@ -186,9 +208,17 @@ class Instruments:
                     K.gae.launches = before
             return out
 
+        def counted_train_block(runner, state):
+            out = train_block(runner, state)
+            self.ring_rows = out[0].buffer.cur_size
+            return out
+
         on_policy.compute_gae = checked_gae
         on_policy.OnPolicyRunner.train_iteration = timed(train_iteration, self.iteration_s)
         on_policy.OnPolicyRunner.evaluate = timed(evaluate, self.eval_s)
+        Off.collect_block = timed(collect_block, self.collect_s)
+        Off.train_block = timed(counted_train_block, self.train_s)
+        Off.evaluate = timed(off_evaluate, self.eval_s)
         return self
 
     def __exit__(self, *exc):
@@ -197,10 +227,11 @@ class Instruments:
 
 
 def read_curves(run_dir: str) -> dict:
-    """{"eval", "won", "mean_step_reward"}: [(steps, value), ...] from a
-    run's progress.txt (the evaluations' return and score rate, the
-    training records' mean step reward)."""
-    curves = {"eval": [], "won": [], "mean_step_reward": []}
+    """{"eval", "won", "mean_step_reward", "mean_episode_return"}: [(steps,
+    value), ...] from a run's progress.txt (the evaluations' return and
+    score rate; the training records' mean step reward and mean episode
+    return). An off-policy record holds its evaluation too."""
+    curves = {"eval": [], "won": [], "mean_step_reward": [], "mean_episode_return": []}
     with open(os.path.join(run_dir, "logs", "progress.txt")) as f:
         for line in f:
             rec = json.loads(line)
@@ -208,9 +239,23 @@ def read_curves(run_dir: str) -> dict:
                 curves["eval"].append((rec["steps"], rec["eval_return"]))
                 if "eval_win_rate" in rec:
                     curves["won"].append((rec["steps"], rec["eval_win_rate"]))
-            elif "mean_step_reward" in rec:
-                curves["mean_step_reward"].append((rec["steps"], rec["mean_step_reward"]))
+            for key in ("mean_step_reward", "mean_episode_return"):
+                if key in rec:
+                    curves[key].append((rec["steps"], rec[key]))
     return curves
+
+
+def is_off_policy(name: str) -> bool:
+    return RUNS[name]["shape"] is None
+
+
+def budget_of(name: str, tr: dict) -> tuple:
+    """(env-steps trained, env-steps an iteration or block) of a run whose
+    resolved train section is ``tr``: whole iterations of T x n, or
+    blocks of ``train_interval`` x n after a warmup that is not counted."""
+    n = tr["n_rollout_threads"]
+    step = tr["train_interval"] * n if is_off_policy(name) else tr["episode_length"] * n
+    return max(tr["num_env_steps"] // step, 1) * step, step
 
 
 def run_argv(name: str, seed: int, platform: str, iterations: int, extra: list,
@@ -224,7 +269,7 @@ def run_argv(name: str, seed: int, platform: str, iterations: int, extra: list,
             "--log_dir", log_dir, *(["--platform", "cpu"] if platform == "cpu" else []), *extra]
     tr = train.resolve_args(argv)[1]["train"]
     if iterations:
-        tr["num_env_steps"] = iterations * tr["episode_length"] * tr["n_rollout_threads"]
+        tr["num_env_steps"] = iterations * budget_of(name, tr)[1]
         argv += ["--num_env_steps", str(tr["num_env_steps"])]
     return argv, tr
 
@@ -236,7 +281,8 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
     process's rank of it: ``extra`` then names the process group), write
     its CSVs and JSON into ``out_dir`` (rank 0 only) and return the
     record; raises after writing it if the GAE kernel was not launched
-    once an iteration or its in-situ error is out of bound."""
+    once an iteration or its in-situ error is out of bound (off-policy:
+    if it was launched, or the ring's rows are not the run's)."""
     import torch
 
     from harl_tpu_torch import train
@@ -246,9 +292,15 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         raise SystemExit("no CUDA device: the parity runs need one (or --platform cpu)")
     card = "cpu" if platform == "cpu" else _chip_smoke().card_line()
     argv, tr = run_argv(name, seed, platform, iterations, list(extra), log_dir)
-    T, n = tr["episode_length"], tr["n_rollout_threads"]
-    budget = max(tr["num_env_steps"] // (T * n), 1) * T * n
+    n = tr["n_rollout_threads"]
+    budget = budget_of(name, tr)[0]
     columns = n // ranks     # a rank's envs
+    if is_off_policy(name):
+        al = train.resolve_args(argv)[1]["algo"]
+        expect = dict(launches=0, ring_rows=min(tr["warmup_steps"] // n * n + budget,
+                                                al["buffer_size"]))
+    else:
+        expect = dict(shape=(tr["episode_length"], columns))
     if platform != "cpu":
         torch.cuda.reset_peak_memory_stats()
     launches0 = K.gae.launches
@@ -257,15 +309,15 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         run_dir = train.main(argv)
     wall = time.perf_counter() - t0
     launches = K.gae.launches - launches0
+    if is_off_policy(name):   # a block: its collect and its train
+        ins.iteration_s = [c + t for c, t in zip(ins.collect_s, ins.train_s)]
     iters = len(ins.iteration_s)
     situ = ins.in_situ
     if run_dir is None:
         # a rank other than 0: nothing written, its own kernel checked
         print(f"{name} seed {seed}: a rank of {ranks}, {iters} iterations, gae launches "
-              f"{launches}; in situ T={situ['T']}, b={situ['b']}: max |err| "
-              f"{situ['max_abs_err']:.3g} of returns up to {situ['max_abs_return']:.3g}, "
-              f"{situ['ms']} ms warm", flush=True)
-        check_rank(name, seed, platform, launches, iters, situ, (T, columns))
+              f"{launches}; {situ_text(situ, ins.ring_rows)}", flush=True)
+        check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect)
         return {}
     curves = read_curves(run_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -282,28 +334,43 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         device=torch.cuda.get_device_name(0) if platform != "cpu" else "cpu",
         env_steps=budget, iterations=iters, wall_s=wall, env_steps_per_s=budget / wall,
         iteration_s=ins.iteration_s, eval_s=ins.eval_s,
+        **(dict(collect_s=ins.collect_s, train_s=ins.train_s) if is_off_policy(name) else {}),
         peak_cuda_bytes=torch.cuda.max_memory_allocated() if platform != "cpu" else None,
         peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         gae_launches=launches, gae_launches_per_iteration=launches / max(iters, 1),
-        gae_in_situ=ins.in_situ, metric=spec["metric"],
+        gae_in_situ=ins.in_situ, ring_rows=ins.ring_rows, metric=spec["metric"],
         at_record={str(step): values.get(step) for step, _ in spec["record"]},
         run_dir=run_dir)
     with open(f"{stem}.json", "w") as f:
         json.dump(rec, f, indent=1)
     print(f"{name} seed {seed}: {iters} iterations, {budget} env-steps in {wall:.1f} s "
           f"({budget / wall:.1f} env-steps/s, {concurrent} run(s) at once), evals "
-          f"{[round(s, 2) for s in ins.eval_s]} s; gae launches {launches}; in situ "
-          f"T={situ['T']}, b={situ['b']}: max |err| {situ['max_abs_err']:.3g} of returns up to "
-          f"{situ['max_abs_return']:.3g}, {situ['ms']} ms warm; at the record "
-          f"{rec['at_record']} on {card_label(rec)}", flush=True)
-    check_rank(name, seed, platform, launches, iters, situ, (T, columns))
+          f"{[round(s, 2) for s in ins.eval_s]} s; gae launches {launches}; "
+          f"{situ_text(situ, ins.ring_rows)}; at the record {rec['at_record']} on "
+          f"{card_label(rec)}", flush=True)
+    check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect)
     return rec
 
 
+def situ_text(situ: dict, ring_rows: int) -> str:
+    if situ is None:
+        return f"replay ring rows {ring_rows}"
+    return (f"in situ T={situ['T']}, b={situ['b']}: max |err| {situ['max_abs_err']:.3g} of "
+            f"returns up to {situ['max_abs_return']:.3g}, {situ['ms']} ms warm")
+
+
 def check_rank(name: str, seed: int, platform: str, launches: int, iters: int, situ: dict,
-               shape: tuple) -> None:
+               ring_rows: int, expect: dict) -> None:
     """Raise unless the GAE kernel ran once an iteration (on a card) and
-    its in-situ error at the rank's (T, b) is within bound."""
+    its in-situ error at the rank's (T, b), ``expect["shape"]``, is within
+    bound; for an off-policy run, unless it never ran and the ring holds
+    ``expect["ring_rows"]`` rows."""
+    if "ring_rows" in expect:
+        if launches != expect["launches"] or ring_rows != expect["ring_rows"]:
+            raise AssertionError(f"{name} seed {seed}: gae launched {launches} times, the "
+                                 f"ring holds {ring_rows} rows; expected {expect}")
+        return
+    shape = expect["shape"]
     if platform != "cpu" and launches != iters:
         raise AssertionError(f"{name} seed {seed}: gae launched {launches} times in {iters} "
                              "iterations")
@@ -342,7 +409,8 @@ def load_records(out_dir: str, names) -> dict:
 def table(out_dir: str, names) -> tuple:
     """(the markdown table of the runs found in ``out_dir``, {run:
     verdict}): a row a run and record point, and a run's verdict "meets"
-    only where every point meets."""
+    only where every point meets, "misses" where a point it reached
+    misses, else "cut"."""
     lines = ["| Run | Step | Port, by seed | Median | JAX record | Tolerance | Verdict | "
              "env-steps/s, by seed (runs at once) | Wall s, by seed | GAE launches an "
              "iteration; in-situ max \\|err\\| / largest return | Card |",
@@ -360,16 +428,17 @@ def table(out_dir: str, names) -> tuple:
             rates = ", ".join(f"{r['env_steps_per_s']:.1f}" for r in recs)
             walls = ", ".join(f"{r['wall_s']:.1f}" for r in recs)
             gae = ", ".join(f"{r['gae_launches_per_iteration']:g}; "
-                            f"{r['gae_in_situ']['max_abs_err']:.2g} / "
-                            f"{r['gae_in_situ']['max_abs_return']:.3g}" for r in recs)
+                            + (f"ring rows {r['ring_rows']:,}" if r["gae_in_situ"] is None else
+                               f"{r['gae_in_situ']['max_abs_err']:.2g} / "
+                               f"{r['gae_in_situ']['max_abs_return']:.3g}") for r in recs)
             cards = "; ".join(sorted({card_label(r) for r in recs}))
             lines.append(
                 f"| {name} | {step:,} | {by_seed} | {'—' if med is None else f'{med:.4g}'} | "
                 f"{spec['metric']} {record} ({spec['source']}) | "
                 f"{tolerance(spec['metric'], record):.3g} | {word} | {rates} "
                 f"({max(r['concurrent'] for r in recs)}) | {walls} | {gae} | {cards} |")
-        verdicts[name] = ("cut" if "cut" in seen else
-                          "misses" if "misses" in seen else "meets")
+        verdicts[name] = ("misses" if "misses" in seen else
+                          "cut" if "cut" in seen else "meets")
     return "\n".join(lines), verdicts
 
 

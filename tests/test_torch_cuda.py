@@ -553,8 +553,65 @@ def test_a_restore_keeps_adam_step_counts_on_the_cpu(device, tmp_path):
     state, _ = runner.train_iteration(runner.init_state(0))
     path = checkpoint.save_state(str(tmp_path), runner.checkpoint(state), 1)
     restored = runner.load_checkpoint(runner.init_state(1),
-                                      checkpoint.restore_state(path, runner.device))
+                                      checkpoint.restore_state(path))
     states = [s for st in restored.actors + [restored.critic]
               for s in st.opt.adam.state.values()]
     assert states and all(s["step"].device.type == "cpu" for s in states)
     assert all(s["exp_avg"].device.type == "cuda" for s in states)
+
+
+@pytest.mark.parametrize("numel", [3, (64 << 20) // 4 + 5, 3 * (64 << 20) // 4 - 7])
+def test_copy_to_device_from_a_mapped_file_is_bitwise(device, tmp_path, numel):
+    """``checkpoint.copy_to_device`` from a memory-mapped file onto the card:
+    below one stage, across two and a ragged third, bitwise (NaN payloads
+    and -0.0 included), into the same storage."""
+    from harl_tpu_torch.utils import checkpoint
+
+    x = torch.randn(numel)
+    x[0], x[-1] = -0.0, float("nan")
+    torch.save({"x": x}, tmp_path / "x.pt")
+    saved = torch.load(tmp_path / "x.pt", map_location="cpu", mmap=True,
+                       weights_only=True)["x"]
+    live = torch.zeros(numel, device=device)
+    ptr = live.data_ptr()
+    checkpoint.copy_to_device(live, saved)
+    assert live.data_ptr() == ptr
+    assert torch.equal(live.cpu().view(torch.int32), x.view(torch.int32))
+
+
+def test_fp_restore_on_the_card_keeps_the_ring_in_place(device, tmp_path):
+    """A SMACLite FP HASAC runner on the card with a ring of 0.55 GiB (its
+    state columns 156 MB, several stages each), restored from its checkpoint into a fresh
+    state: the ring keeps its storage, equals the file's bytes, and the
+    restore allocates less on the card than one ring column."""
+    from harl_tpu_torch.buffers.off_policy import ring_columns
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils import checkpoint
+    from harl_tpu_torch.utils.config_tools import get_defaults_yaml_args
+
+    algo_args, env_args = get_defaults_yaml_args("hasac", "smaclite")
+    algo_args["train"].update(n_rollout_threads=4, warmup_steps=40, train_interval=5)
+    algo_args["algo"].update(batch_size=32, buffer_size=50_000)
+    algo_args["model"].update(hidden_sizes=[16, 16])
+    env_args.update(map_name="5m_vs_6m", state_type="FP")
+    runner = OffPolicyRunner({"algo": "hasac", "env": "smaclite"}, algo_args, env_args,
+                             device=device)
+    state = runner.warmup_block(runner.init_state(1))
+    state, _ = runner.collect_block(state)
+    state, _ = runner.train_block(state)
+    path = checkpoint.save_state(str(tmp_path), runner.checkpoint(state), 1)
+    del state
+    live = runner.init_state(2)
+    ptrs = [t.data_ptr() for t in live.buffer.tensors()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    restored = runner.restore(live, str(tmp_path))
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    assert [t.data_ptr() for t in restored.buffer.tensors()] == ptrs
+    assert grew < min(t.nbytes for t in restored.buffer.tensors()[:2])
+    saved = checkpoint.restore_state(path)["state"]["buffer"]
+    assert restored.buffer.cur_size == saved["cur_size"] == 60
+    for a, b in zip(restored.buffer.tensors(), ring_columns(saved.get)):
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))

@@ -1,7 +1,8 @@
 """``scripts/torch_learning_parity.py`` on the CPU: each run of its table
 resolves to the very experiment of the JAX record (configs and lr
 schedules equal to the JAX CLI's), its records equal the committed JAX
-curves, the meets/misses rule, and the script end to end at a tiny size."""
+curves, the meets/misses rule, and the script end to end at a tiny size,
+the off-policy HASAC run too."""
 import argparse
 import copy
 import importlib.util
@@ -18,9 +19,11 @@ import pytest
 
 from harl_tpu import train as jtrain
 from harl_tpu.algos import common as jcommon
+from harl_tpu.runners.off_policy import OffPolicyRunner as JOffRunner
 from harl_tpu.runners.on_policy import OnPolicyRunner as JRunner
 from harl_tpu.utils import config_tools as jconfig
 from harl_tpu_torch import train
+from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.runners.on_policy import OnPolicyRunner
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -33,6 +36,14 @@ _spec.loader.exec_module(parity)
 TINY = ["--n_rollout_threads", "4", "--episode_length", "20", "--hidden_sizes", "[8, 8]",
         "--n_eval_rollout_threads", "2", "--eval_episodes", "2", "--episode_limit", "30",
         "--ppo_epoch", "1", "--critic_epoch", "1"]
+# the off-policy run's: 2 envs, a warmup of 40 steps, blocks of 10 steps, a
+# record every 2 blocks, a ring of 70 rows that the third block fills
+TINY_OFF = ["--n_rollout_threads", "2", "--warmup_steps", "40", "--train_interval", "10",
+            "--buffer_size", "70", "--batch_size", "16", "--hidden_sizes", "[8, 8]",
+            "--n_eval_rollout_threads", "2", "--eval_episodes", "2", "--episode_limit", "30",
+            "--eval_interval", "20"]
+ON_POLICY_RUNS = [name for name in parity.RUNS if not parity.is_off_policy(name)]
+OFF_POLICY_RUNS = [name for name in parity.RUNS if parity.is_off_policy(name)]
 
 
 def jax_resolve(argv):
@@ -72,10 +83,21 @@ def test_runs_resolve_to_the_jax_experiment(name):
     assert got == want
     tr = got[1]["train"]
     assert got[1]["seed"] == {"seed_specify": True, "seed": 2}
+    last = max(step for step, _ in parity.RUNS[name]["record"])
+    budget, step = parity.budget_of(name, tr)
+    if parity.is_off_policy(name):
+        # 20 envs as the JAX run; its log points are warmup + 200 blocks of
+        # 1,000 env-steps apart, and the budget ends at the record's last
+        n, ti = tr["n_rollout_threads"], tr["train_interval"]
+        assert (n, ti, tr["warmup_steps"], tr["eval_interval"]) == (20, 50, 10000, 10000)
+        assert (budget, step) == (800000, 1000)
+        assert tr["warmup_steps"] + budget == last
+        assert all((s - tr["warmup_steps"]) % (tr["eval_interval"] // ti * step) == 0
+                   for s, _ in parity.RUNS[name]["record"])
+        return
     T, n = parity.RUNS[name]["shape"]
     assert (tr["episode_length"], tr["n_rollout_threads"]) == (T, n)
-    last = max(step for step, _ in parity.RUNS[name]["record"])
-    assert tr["num_env_steps"] // (T * n) * (T * n) >= last
+    assert budget >= last
 
 
 def _jax_lrs(tx, eps: float, steps: int) -> np.ndarray:
@@ -101,7 +123,7 @@ def _port_lrs(opt, steps: int) -> np.ndarray:
                      for c in range(steps)])
 
 
-@pytest.mark.parametrize("name", list(parity.RUNS))
+@pytest.mark.parametrize("name", ON_POLICY_RUNS)
 def test_lr_schedules_equal_over_the_budget(name):
     """(d) Each runner's actor and critic lr at every optimizer step of the
     run's whole budget, the port's against the JAX runner's optax chain:
@@ -131,16 +153,39 @@ def test_lr_schedules_equal_over_the_budget(name):
             assert len(set(got[:updates])) == 1 and got[updates] < got[0]
 
 
+@pytest.mark.parametrize("name", OFF_POLICY_RUNS)
+def test_off_policy_lrs_are_the_jax_runners_constants(name):
+    """The off-policy run's optimizers keep one lr over the whole budget,
+    as the JAX runner's ``optax.adam(lr)`` does (no decay in the tuned
+    config, so cutting its budget changes nothing before the cut): every
+    actor's, the critic's and α's, equal to the JAX runner's."""
+    args, algo_args, env_args = train.resolve_args(_argv(name))
+    assert algo_args["train"]["use_linear_lr_decay"] is False
+    runner = OffPolicyRunner(args, copy.deepcopy(algo_args), dict(env_args), device="cpu")
+    jrunner = JOffRunner(args, copy.deepcopy(algo_args), dict(env_args))
+    state = runner.init_state(1)
+    assert len(state.actors) == len(jrunner.actors) == 6
+    for st, jactor in zip(state.actors, jrunner.actors):
+        assert [g["lr"] for g in st.opt.param_groups] == [jactor.lr]
+        assert [g["lr"] for g in st.alpha_opt.param_groups] == [jrunner.alpha_lr]
+        assert not hasattr(st.opt, "lr_schedule")
+    assert [g["lr"] for g in state.critic.opt.param_groups] == [jrunner.critic.critic_lr]
+    assert jactor.lr == algo_args["model"]["lr"] and \
+        jrunner.critic.critic_lr == algo_args["model"]["critic_lr"]
+
+
 @pytest.mark.parametrize("name", list(parity.RUNS))
 def test_records_are_the_committed_jax_results(name):
     """Each record of the run table is what the JAX run committed: its
-    score-rate curve, or the round-1 HalfCheetah reading."""
+    score-rate or train-return curve, or the round-1 HalfCheetah reading."""
     spec = parity.RUNS[name]
-    if spec["metric"] == "won":
+    if spec["metric"] != "mean_step_reward":
         with open(ROOT / spec["source"]) as f:
             curve = dict((int(s), float(v)) for s, v in (line.split(",") for line in f))
         for step, value in spec["record"]:
             assert curve[step] == value
+        if spec["metric"] == "mean_episode_return":   # every point of the curve
+            assert [step for step, _ in spec["record"]] == sorted(curve)
     else:
         text = (ROOT / "VALIDATION.md").read_text().splitlines()
         line = text[int(spec["source"].split(":")[1].split()[0]) - 1]
@@ -156,11 +201,14 @@ def test_records_are_the_committed_jax_results(name):
     ("mean_step_reward", [4.5, 5.2, 3.0], 4.0, "meets"),   # better
     ("mean_step_reward", [3.65, 3.7, 3.61], 4.0, "meets"),  # within 10 %
     ("mean_step_reward", [3.5, 3.59, 4.4], 4.0, "misses"),  # 3.59 < 3.6
+    ("mean_episode_return", [5300.0, 5210.0, 6100.0], 5782.47, "meets"),  # within 10 %
+    ("mean_episode_return", [5100.0, 5200.0, 6100.0], 5782.47, "misses"),  # 5200 < 5204.2
+    ("mean_episode_return", [2100.0, 1865.4, 1500.0], 2072.57, "meets"),  # 1865.4 > 1865.31
     ("won", [], 0.9, "cut")])
 def test_the_rule(metric, values, record, want):
     """(c) A run meets its record where the median of its seeds is no lower
     than the record less 0.05 (a score rate) or 10 % of it (HalfCheetah's
-    mean step reward)."""
+    mean step reward, an episode return)."""
     med, word = parity.verdict(metric, values, record)
     assert word == want
     if values:
@@ -179,6 +227,13 @@ def test_table_verdict_needs_every_point(tmp_path):
         (tmp_path / f"{name}_s{seed}.json").write_text(json.dumps(rec))
     text, verdicts = parity.table(str(tmp_path), [name, "halfcheetah_6x1_happo"])
     assert verdicts == {name: "misses"}          # the median 0.91 at 2.56M
+    # a point not reached does not hide a miss at one that was
+    for seed in (1, 2, 3):
+        path = tmp_path / f"{name}_s{seed}.json"
+        rec = json.loads(path.read_text())
+        rec["at_record"]["4966400"] = None
+        path.write_text(json.dumps(rec))
+    assert parity.table(str(tmp_path), [name])[1] == {name: "misses"}
     rows = [r for r in text.splitlines() if r.startswith(f"| {name}")]
     assert len(rows) == 2 and "s2 0.91" in rows[0] and "| misses |" in rows[0]
     assert "| meets |" in rows[1]
@@ -212,6 +267,36 @@ def test_script_end_to_end_on_the_cpu(tmp_path):
             len(parity.RUNS[name]["record"])
     assert json.loads(out.stdout.splitlines()[-1]) == {
         "verdicts": {name: "cut" for name in runs}, "failed": []}
+
+
+def test_script_trains_the_off_policy_run_on_the_cpu(tmp_path):
+    """The HASAC run with ``--platform cpu``, cut to 3 blocks at tiny
+    widths: no GAE launch, the ring's rows at the end min(warmup + steps,
+    buffer_size) = min(40 + 60, 70), a record (with its evaluation) every
+    2 blocks and at the last, the train-return curve written."""
+    name = "halfcheetah_6x1_hasac"
+    out = subprocess.run(
+        [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", name, "--seeds", "1",
+         "--iterations", "3", "--out", str(tmp_path / "out"), "--log_dir",
+         str(tmp_path / "runs"), "--", *TINY_OFF],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    rec = json.loads((tmp_path / "out" / f"{name}_s1.json").read_text())
+    assert (rec["iterations"], rec["env_steps"], rec["gae_launches"]) == (3, 60, 0)
+    assert rec["gae_in_situ"] is None and rec["ring_rows"] == 70
+    assert len(rec["collect_s"]) == len(rec["train_s"]) == 3 and len(rec["eval_s"]) == 2
+    for key in ("mean_episode_return", "eval"):
+        lines = (tmp_path / "out" / f"{name}_s1_{key}.csv").read_text().splitlines()
+        assert [int(line.split(",")[0]) for line in lines] == [80, 100]
+        assert all(np.isfinite(float(line.split(",")[1])) for line in lines)
+    rows = [r for r in out.stdout.splitlines() if r.startswith(f"| {name} |")]
+    assert len(rows) == 4 and all("| cut |" in r and "0; ring rows 70" in r for r in rows)
+    # a ring smaller than the run's rows: the check catches a wrong count
+    with pytest.raises(AssertionError, match="ring holds 69 rows"):
+        parity.check_rank(name, 1, "cpu", 0, 3, None, 69, dict(launches=0, ring_rows=70))
+    with pytest.raises(AssertionError, match="gae launched 1 times"):
+        parity.check_rank(name, 1, "cpu", 1, 3, None, 70, dict(launches=0, ring_rows=70))
 
 
 def test_table_card_column_says_ranks_and_cards(tmp_path):

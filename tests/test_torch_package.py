@@ -110,7 +110,37 @@ def test_learning_parity_script_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["5"]
+    assert out.stdout.split() == ["6"]
+
+
+def test_replay_scale_script_imports_without_jax():
+    """``scripts/torch_replay_scale.py``, each map's argv resolved through the
+    port's CLI, and ``chip_smoke.py`` (its card line, and the restore's
+    measurement and checks, which phase 23 shares) import with JAX, flax,
+    optax and harl_tpu made unimportable."""
+    code = textwrap.dedent("""
+        import importlib.util, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "harl_tpu"):
+            sys.modules[name] = None
+        spec = importlib.util.spec_from_file_location(
+            "scale", "scripts/torch_replay_scale.py")
+        scale = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(scale)
+        smoke = scale._chip_smoke()
+        assert callable(smoke.measured_restore) and callable(smoke.check_restore)
+        for name in scale.MAPS:
+            argv, resolved = scale.run_argv(name, "cpu", "unused", [])
+            assert resolved[1]["algo"]["buffer_size"] == 1000000
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "harl_tpu")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print(len(scale.MAPS))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["8"]
 
 
 def test_multicard_script_imports_without_jax():

@@ -116,13 +116,13 @@ def test_main_hasac_writes_the_run_directory(tmp_path):
     assert all(torch.isfinite(torch.tensor(r["critic_loss"])) for r in recs)
     # a checkpoint at the last block only (every 10 blocks otherwise), the newest 2 kept
     assert os.listdir(run / "models") == ["ckpt_32"]
-    payload = checkpoint.restore_state(str(run / "models" / "ckpt_32"), torch.device("cpu"))
+    payload = checkpoint.restore_state(str(run / "models" / "ckpt_32"))
     buf = payload["state"]["buffer"]
     assert buf["cur_size"] == 8 + 6 * 2 * 2 and buf["share_obs"].shape == (200, 17)
 
 
 def _final_payload(run):
-    return checkpoint.restore_state(checkpoint.latest_checkpoint(str(run)), torch.device("cpu"))
+    return checkpoint.restore_state(checkpoint.latest_checkpoint(str(run)))
 
 
 def _assert_payloads_equal(a, b, where=""):
