@@ -212,6 +212,24 @@ first one.
    equals the file's bytes in 1 GiB chunks. Then 1 GiB of the file is
    copied onto the card straight and through the restore's pinned stages,
    each timed; the memory file is closed.
+24. tuned HASAC HalfCheetah-6x1 at a late state, the card against the CPU:
+   its config's runner (20 envs, [256, 256] with feature normalisation,
+   batch 1000, ``n_step`` 10, auto-α, a 1,000,000-row ring) after a
+   warmup of 4,000 env-steps (each env's step counter set first so that
+   every env crosses a 1,000-step truncation in it) and one update, set to
+   what a long run reaches
+   (``set_late``: a ring of 410,000 rows, the warmup's rows repeated whole;
+   every Adam count 20,000; every log α −6; each env's step counter set
+   so that every env is truncated and reset once in the first 40 held
+   steps), copied whole to a CPU runner of the same config; then 50
+   collect steps and 50 updates on the card,
+   each held against the CPU's from the card's state (carry and cursor
+   before each step, the rows it inserted after it; networks, optimizers
+   and α before each update) and the card's own draws: inserted rows,
+   collect metrics, carry, critic loss, and every parameter, target, Adam
+   moment and log α at the tolerances ``LATE_*`` states. A fault that only
+   the card's arithmetic or a CUDA-only branch takes shows here, which
+   the CPU witness (``scripts/torch_offpolicy_witness.py``) cannot see.
 
 It prints one JSON line about the kernels, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -219,6 +237,7 @@ its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -3309,6 +3328,293 @@ def drive_replay_scale_path(card: str, log_dir: str, device: str = "cuda",
     return {"replay_scale_" + REPLAY_MAP: launches}
 
 
+# ---------------- tuned HASAC HalfCheetah-6x1 at a late state, card against CPU (phase 24)
+LATE_HASAC = dict(rows=410_000, adam_count=20_000, log_alpha=-6.0, warmup_steps=4_000)
+# One env step, or one update, from the same state on both devices (TF32
+# off): float32 reduced in another order by the card's and the CPU's
+# kernels. The rows a step inserts, its metrics and the critic loss at the
+# off-policy witness's data tolerance; parameters, targets, Adam moments and
+# log α after one Adam step at its parameter tolerance (a step moves a
+# parameter by ~lr times a gradient's relative error; lr 1e-3).
+LATE_DATA_RTOL, LATE_DATA_ATOL = 1e-4, 2e-4
+LATE_PARAM_RTOL, LATE_PARAM_ATOL = 1e-4, 1e-5
+
+
+class RecordedNoise:
+    """A noise source that draws from ``base`` and keeps a CPU copy of each
+    draw in order: (kind, its first argument, the draw)."""
+
+    def __init__(self, base):
+        self.base, self.log = base, []
+
+    def __getattr__(self, kind):
+        fn = getattr(self.base, kind)
+
+        def draw(*args):
+            out = fn(*args)
+            cpu = (tuple(x.cpu() for x in out) if isinstance(out, tuple) else out.cpu())
+            self.log.append((kind, args[0] if args else None, cpu))
+            return out
+        return draw
+
+
+class QueuedNoise:
+    """Hands out the draws a ``RecordedNoise`` kept, in order and on
+    ``device``, raising where a draw of another kind or shape is asked."""
+
+    def __init__(self, log, device):
+        self.log, self.device = list(log), torch.device(device)
+
+    def __getattr__(self, kind):
+        def draw(*args):
+            if not self.log:
+                raise AssertionError(f"{kind}{args}: no recorded draw left")
+            k, first, out = self.log.pop(0)
+            if k != kind or first != (args[0] if args else None):
+                raise AssertionError(f"asked {kind}{args}, recorded {k}({first}, ...)")
+            if kind == "permutation":
+                return out
+            return (tuple(x.to(self.device) for x in out) if isinstance(out, tuple)
+                    else out.to(self.device))
+        return draw
+
+
+def set_truncations(state, episode_limit: int, within: int) -> None:
+    """Each env's step counter set near ``episode_limit``, so that env ``e``
+    of ``B`` is truncated at its ``1 + e·(within − 1)//(B − 1)``-th step
+    from here."""
+    if not 0 < within < episode_limit:
+        raise ValueError(f"truncations within {within} steps of a {episode_limit}-step limit")
+    t = state.carry.env_state.t
+    left = 1 + torch.arange(t.shape[0], device=t.device) * (within - 1) // max(t.shape[0] - 1, 1)
+    t.copy_((episode_limit - left).to(t.dtype))
+
+
+def set_late(state, rows: int, count: int, log_alpha: float) -> int:
+    """What a long run reaches, set in place: the ring's first ``rows`` rows
+    its rows so far repeated whole in insertion order (each env's stride and
+    its done and term flags as inserted), the cursor at the head; every Adam
+    count (networks' and α's) at ``count``; every log α at ``log_alpha``.
+    Returns the rows repeated."""
+    buf = state.buffer
+    period = buf.cur_size
+    if not 0 < period <= rows <= buf.buffer_size:
+        raise ValueError(f"a ring of {rows} rows from {period} in {buf.buffer_size}")
+    src = torch.arange(rows, device=buf.dones.device) % period
+    for col in buf.tensors():
+        col[:rows] = col[src]
+    buf.idx, buf.cur_size = rows % buf.buffer_size, rows
+    opts = [st.opt for st in state.actors] + [state.critic.opt]
+    opts += [o.alpha_opt for o in state.actors + [state.critic] if o.alpha_opt is not None]
+    for opt in opts:
+        for st in opt.state.values():
+            st["step"].fill_(float(count))
+    with torch.no_grad():
+        for o in state.actors + [state.critic]:
+            if o.log_alpha is not None:
+                o.log_alpha.fill_(log_alpha)
+    return period
+
+
+def copy_learners(src, dst) -> None:
+    """The networks, targets, optimizers and α of ``src`` into ``dst``
+    (another device's state of the same runner config), and its count."""
+    from harl_tpu_torch.utils import checkpoint
+
+    for a, b in zip(src.actors, dst.actors):
+        checkpoint.load_payload(b, checkpoint.to_payload(a))
+    checkpoint.load_payload(dst.critic, checkpoint.to_payload(src.critic))
+    dst.total_it = src.total_it
+
+
+class LateHold:
+    """The largest error of each quantity over the phase, over its
+    tolerance, with where it was."""
+
+    def __init__(self):
+        self.q = {}
+
+    def hold(self, name, got, ref, rtol, atol, where):
+        g, r = got.detach().double().cpu(), ref.detach().double().cpu()
+        if g.shape != r.shape:
+            raise AssertionError(f"{name} {where}: {tuple(g.shape)} against {tuple(r.shape)}")
+        err = (g - r).abs()
+        excess = err / (atol + rtol * r.abs())
+        excess = torch.where(torch.isfinite(excess), excess, torch.full_like(excess, math.inf))
+        worst = float(excess.max()) if excess.numel() else 0.0
+        rec = self.q.setdefault(name, dict(max_abs_err=0.0, max_excess=0.0, where=None,
+                                           rtol=rtol, atol=atol))
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()) if err.numel() else 0.0)
+        if worst > rec["max_excess"] or rec["where"] is None:
+            rec["max_excess"], rec["where"] = max(worst, rec["max_excess"]), where
+
+    def check(self) -> None:
+        bad = {k: v for k, v in self.q.items() if not v["max_excess"] <= 1.0}
+        if bad:
+            raise AssertionError(f"tuned HASAC, card against CPU: {bad}")
+
+
+def hold_late_learners(h: LateHold, a, b, unit: str) -> None:
+    """Every parameter, target, Adam moment and log α of state ``a`` (the
+    CPU's) against ``b`` (the card's)."""
+    pairs = [(f"actor {i}", "actor", x, y) for i, (x, y) in enumerate(zip(a.actors, b.actors))]
+    pairs.append(("critic", "critic", a.critic, b.critic))
+    tol = (LATE_PARAM_RTOL, LATE_PARAM_ATOL)
+    for who, kind, x, y in pairs:
+        xn, yn = (x.net, y.net) if kind == "actor" else (x.nets, y.nets)
+        xt, yt = (x.target, y.target) if kind == "actor" else (x.targets, y.targets)
+        for (k, p), q in zip(xn.named_parameters(), yn.parameters()):
+            h.hold(f"{kind}.params", p, q, *tol, f"{unit} {who} {k}")
+            for m in ("exp_avg", "exp_avg_sq"):
+                h.hold(f"{kind}.{m}", x.opt.state[p][m], y.opt.state[q][m], *tol,
+                       f"{unit} {who} {k}")
+            if float(x.opt.state[p]["step"]) != float(y.opt.state[q]["step"]):
+                raise AssertionError(f"{unit} {who} {k}: Adam counts differ")
+        for (k, p), q in zip(xt.state_dict().items(), yt.state_dict().values()):
+            h.hold(f"{kind}.targets", p, q, *tol, f"{unit} {who} {k}")
+        if x.log_alpha is not None:
+            h.hold(f"{kind}.log_alpha", x.log_alpha, y.log_alpha, *tol, f"{unit} {who}")
+
+
+def drive_late_hasac_path(card: str, device: str = "cuda", shrink: tuple = (),
+                          n_units: int = 50) -> dict:
+    """Phase 24: tuned HASAC HalfCheetah-6x1 (``CLI_HASAC``: 20 envs,
+    [256, 256] with feature normalisation, batch 1000, ``n_step`` 10,
+    auto-α, a 1,000,000-row ring) at a late state (``LATE_HASAC``: a ring of
+    410,000 rows made of a 4,000-row warmup repeated whole, each env's step
+    counter set first so that it is truncated in the warmup's first half;
+    every Adam count 20,000, every log α −6; each env's step counter set
+    again so that it is truncated, and reset, once within the first four
+    fifths of the held steps), on ``device``, held against a CPU runner of
+    the same config one unit at a time: ``n_units`` collect steps, the
+    CPU's carry and cursor set to the card's before each and the rows it
+    inserts then copied from the card's, and a train block of ``n_units``
+    updates, the CPU's networks,
+    optimizers and α set to the card's before each; every draw the card's,
+    copied to the CPU (``RecordedNoise``, ``QueuedNoise``). Held at
+    ``LATE_DATA_*`` and ``LATE_PARAM_*`` (``LateHold``), and every env
+    must end one episode; ``shrink`` (words of argv) narrows it and
+    ``n_units`` shortens it for a rehearsal. Returns the launches (none:
+    the path is off-policy)."""
+    from harl_tpu_torch import train
+    from harl_tpu_torch.runners.off_policy import OffPolicyRunner
+    from harl_tpu_torch.utils import checkpoint
+    from harl_tpu_torch.utils.noise import GeneratorNoise
+
+    t_all = time.perf_counter()
+    zero_launches()
+    late = dict(LATE_HASAC)
+    args, algo_args, env_args = train.resolve_args(
+        ["--load_config", CLI_HASAC, "--warmup_steps", str(late["warmup_steps"]),
+         "--train_interval", "1", "--update_per_train", "1", *shrink])
+    if shrink:
+        late["rows"] = algo_args["algo"]["buffer_size"] * 41 // 100
+    gen = torch.Generator(device=device).manual_seed(24)
+    rec = RecordedNoise(GeneratorNoise(gen, device, torch.Generator().manual_seed(24)))
+    runner = OffPolicyRunner(args, copy.deepcopy(algo_args), copy.deepcopy(env_args),
+                             device=device, noise=rec)
+    limit = runner.env.episode_limit
+    state = runner.init_state(1)
+    set_truncations(state, limit, runner.warmup_steps // runner.n_envs // 2)
+    t0 = time.perf_counter()
+    state = runner.warmup_block(state)
+    state, _ = runner.train_block(state)           # Adam's moments exist
+    sync(device)
+    warmup_s = time.perf_counter() - t0
+    if not bool(state.buffer.dones[:state.buffer.cur_size].any()):
+        raise AssertionError("tuned HASAC late state: the warmup crossed no truncation")
+    period = set_late(state, late["rows"], late["adam_count"], late["log_alpha"])
+    set_truncations(state, limit, n_units * 4 // 5)
+    rec.log.clear()
+    queue = QueuedNoise([], "cpu")
+    cpu = OffPolicyRunner(args, copy.deepcopy(algo_args), copy.deepcopy(env_args),
+                          device="cpu", noise=queue)
+    gen_cpu = torch.Generator().manual_seed(0)
+    cstate = cpu.new_state(gen_cpu, *cpu.vec.reset(GeneratorNoise(gen_cpu, "cpu")))
+    t0 = time.perf_counter()
+    checkpoint.load_payload(cstate, checkpoint.to_payload(state))
+    sync(device)
+    copy_s = time.perf_counter() - t0
+    h, B, S = LateHold(), runner.n_envs, state.buffer.buffer_size
+    dtol, ended = (LATE_DATA_RTOL, LATE_DATA_ATOL), 0.0
+    t0 = time.perf_counter()
+    for step in range(n_units):
+        unit = f"collect step {step + 1}"
+        cstate.carry = type(state.carry)(*[None if x is None else _to_cpu(x)
+                                           for x in state.carry])
+        cstate.buffer.idx, cstate.buffer.cur_size = state.buffer.idx, state.buffer.cur_size
+        idx = state.buffer.idx
+        state, cm = runner.collect_block(state)
+        queue.log = rec.log
+        rec.log = []
+        cstate, ccm = cpu.collect_block(cstate)
+        if queue.log:
+            raise AssertionError(f"{unit}: {len(queue.log)} draws left")
+        rows = (idx + torch.arange(B)) % S
+        for k in ("share_obs", "next_share_obs", "rewards", "dones", "terms"):
+            h.hold(f"insert.{k}", getattr(cstate.buffer, k)[rows],
+                   getattr(state.buffer, k)[rows.to(device)], *dtol, unit)
+        for k in ("obs", "next_obs", "actions", "valid_transitions"):
+            for i, (x, y) in enumerate(zip(getattr(cstate.buffer, k),
+                                           getattr(state.buffer, k))):
+                h.hold(f"insert.{k}", x[rows], y[rows.to(device)], *dtol, f"{unit} agent {i}")
+        for k in ("episode_return_sum", "episode_count", "mean_step_reward"):
+            h.hold(f"collect.{k}", ccm[k], cm[k], *dtol, unit)
+        for k in ("obs", "share_obs", "ep_ret"):
+            h.hold(f"carry.{k}", getattr(cstate.carry, k), getattr(state.carry, k), *dtol, unit)
+        for k in ("q", "qd"):
+            h.hold(f"carry.env_{k}", getattr(cstate.carry.env_state, k),
+                   getattr(state.carry.env_state, k), *dtol, unit)
+        ended += float(cm["episode_count"])
+        for x, y in zip(cstate.buffer.tensors(), state.buffer.tensors()):
+            x[rows] = y[rows.to(device)].cpu()          # the rings stay equal
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = []
+    for u in range(n_units):
+        unit = f"update {u + 1}"
+        copy_learners(state, cstate)
+        state, tm = runner.train_block(state)
+        queue.log = rec.log
+        rec.log = []
+        cstate, ctm = cpu.train_block(cstate)
+        if queue.log:
+            raise AssertionError(f"{unit}: {len(queue.log)} draws left")
+        h.hold("update.critic_loss", ctm["critic_loss"], tm["critic_loss"], *dtol, unit)
+        hold_late_learners(h, cstate, state, unit)
+        losses.append(float(tm["critic_loss"]))
+    train_s = time.perf_counter() - t0
+    h.check()
+    if ended != B:
+        raise AssertionError(f"tuned HASAC late state: {ended:.0f} episodes ended in "
+                             f"{n_units} collect steps of {B} envs, each set to end once")
+    if not all(math.isfinite(x) for x in losses) or state.total_it != 1 + n_units:
+        raise AssertionError(f"tuned HASAC late state: losses {losses}, {state.total_it} updates")
+    alphas = [round(float(torch.exp(st.log_alpha.detach())), 8) for st in state.actors]
+    worst = {k: (f"{v['max_excess']:.3g}", f"{v['max_abs_err']:.3g}") for k, v in h.q.items()}
+    print(f"late tuned HASAC HalfCheetah-6x1 ({B} envs, "
+          f"{algo_args['model']['hidden_sizes']}, batch {runner.batch_size}, n_step "
+          f"{runner.n_step}): a ring of {late['rows']} "
+          f"rows ({period} rows of warmup repeated whole), Adam counts "
+          f"{late['adam_count']}, log alpha {late['log_alpha']}; {n_units} collect steps "
+          f"({ended:.0f} episodes ended) and {n_units} updates on the card held one at a time "
+          f"against the CPU from the card's state and draws: every quantity within tolerance "
+          f"(data rtol {LATE_DATA_RTOL}, atol {LATE_DATA_ATOL}; parameters rtol "
+          f"{LATE_PARAM_RTOL}, atol {LATE_PARAM_ATOL}); worst (excess, |err|) {worst}; critic "
+          f"loss {losses[0]:.4f} .. {losses[-1]:.4f}, alpha after {alphas}; warmup and an "
+          f"update {warmup_s:.2f} s, state copied to the CPU in {copy_s:.2f} s, collect "
+          f"{collect_s:.2f} s, updates {train_s:.2f} s, "
+          f"{time.perf_counter() - t_all:.1f} s in all on {card}", flush=True)
+    return {"late_hasac_card_vs_cpu": read_launches()}
+
+
+def _to_cpu(x):
+    """A tensor, or a NamedTuple of tensors, on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return type(x)(*[_to_cpu(v) for v in x])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -3383,6 +3689,7 @@ def main() -> int:
         replay_paths = drive_replay_scale_path(card, log_dir)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    late_paths = drive_late_hasac_path(card)
     for name, n in hasac_profile().items():
         hasac_launches[name] += n
     main_profile()
@@ -3393,7 +3700,7 @@ def main() -> int:
     by_path = {"halfcheetah": launches, "smaclite_fp": smac_launches, "hasac": hasac_launches,
                "cli_hatrpo_smaclite": cli_launches, **cli_paths, **slice6, **slice7, **slice8,
                **slice9, **dp_paths, **host_paths, **parity_paths, **multicard_paths,
-               **replay_paths}
+               **replay_paths, **late_paths}
     kernels = []
     for name, _, _, _, replaces in kernel_cases():
         if launches[name] < 1:

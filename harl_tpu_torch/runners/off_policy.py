@@ -251,14 +251,19 @@ class OffPolicyRunner:
             env_state, ts = None, common.host_timestep(*self.vec.reset(), self.device)
         else:
             env_state, ts = self.vec.reset(self.noise)
+        return self.new_state(self.generator, env_state, ts)
+
+    def new_state(self, generator: torch.Generator, env_state, ts) -> OffPolicyState:
+        """Fresh networks drawn from ``generator`` (targets equal to them),
+        an empty replay buffer and the carry of the reset ``(env_state, ts)``."""
         actors = []
         for actor in self.actors[:1 if self.share_param else self.n_agents]:
-            st = actor.init(self.generator, self.mesh)
+            st = actor.init(generator, self.mesh)
             if self.algo == "hasac" and self.auto_alpha:
                 st.log_alpha = torch.zeros((), device=self.device, requires_grad=True)
                 st.alpha_opt = adam([st.log_alpha], self.alpha_lr, self.mesh)
             actors.append(st)
-        critic = self.critic.init(self.generator, self.mesh)
+        critic = self.critic.init(generator, self.mesh)
         B, N = self.n_envs, self.n_agents
         ring, dims, avail = self._ring_spec()
         buf = ring(*dims, device=self.device, avail_dims=avail)

@@ -48,7 +48,9 @@ run's own inputs at the first iteration (bound: 1e-5 of the largest
 return) with its warm time and byte bound there, and the run's values at
 the record's steps. An off-policy run launches no GAE kernel: it must
 launch it 0 times, and records instead the replay ring's rows at the end,
-which must equal min(warmup + steps, buffer_size).
+which must equal min(warmup + steps, buffer_size), and at every log record
+(``learners``) each agent's α, the critic's α and the last train block's
+critic loss.
 
 The rule: a run **meets** its record when, at every step the record
 names, the median of the port's seeds is no lower than the record less a
@@ -153,18 +155,22 @@ def _chip_smoke():
 class Instruments:
     """For the duration of a ``with``: each ``train_iteration``'s (each
     off-policy collect and train block's) and each evaluation's seconds,
-    the replay ring's rows after the last train block, and on the first
-    GAE call of the run the kernel held against ``gae_reference`` on its
-    own inputs (and, on CUDA, timed warm; those launches are not counted)."""
+    the replay ring's rows after the last train block, at each off-policy
+    log record the α of every agent and of the critic (auto-α) and the
+    last train block's critic loss (``learners``), and on the first GAE
+    call of the run the kernel held against ``gae_reference`` on its own
+    inputs (and, on CUDA, timed warm; those launches are not counted)."""
 
     def __init__(self, device: str):
         self.device = device
         self.iteration_s, self.eval_s, self.in_situ, self.ring_rows = [], [], None, None
-        self.collect_s, self.train_s = [], []
+        self.collect_s, self.train_s, self.learners = [], [], []
+        self.off_state = self.off_loss = None
 
     def __enter__(self):
         import torch
 
+        from harl_tpu_torch.logging.logger import TrainLogger
         from harl_tpu_torch.ops import gae_kernels as K
         from harl_tpu_torch.runners import off_policy, on_policy
 
@@ -174,9 +180,11 @@ class Instruments:
                        on_policy.OnPolicyRunner.train_iteration),
                       (on_policy.OnPolicyRunner, "evaluate", on_policy.OnPolicyRunner.evaluate),
                       (Off, "collect_block", Off.collect_block),
-                      (Off, "train_block", Off.train_block), (Off, "evaluate", Off.evaluate)]
+                      (Off, "train_block", Off.train_block), (Off, "evaluate", Off.evaluate),
+                      (TrainLogger, "log_episode", TrainLogger.log_episode)]
         ((_, _, compute_gae), (_, _, train_iteration), (_, _, evaluate),
-         (_, _, collect_block), (_, _, train_block), (_, _, off_evaluate)) = self.saved
+         (_, _, collect_block), (_, _, train_block), (_, _, off_evaluate),
+         (_, _, log_episode)) = self.saved
 
         def sync():
             if self.device == "cuda":
@@ -211,7 +219,19 @@ class Instruments:
         def counted_train_block(runner, state):
             out = train_block(runner, state)
             self.ring_rows = out[0].buffer.cur_size
+            self.off_state, self.off_loss = out[0], out[1]["critic_loss"]
             return out
+
+        def alpha(st):
+            return None if st.log_alpha is None else float(torch.exp(st.log_alpha.detach()))
+
+        def logged(logger, record):
+            if self.off_state is not None:      # the learners a record was made after
+                st = self.off_state
+                self.learners.append(dict(
+                    steps=record["steps"], critic_loss=float(self.off_loss),
+                    alpha=[alpha(a) for a in st.actors], critic_alpha=alpha(st.critic)))
+            return log_episode(logger, record)
 
         on_policy.compute_gae = checked_gae
         on_policy.OnPolicyRunner.train_iteration = timed(train_iteration, self.iteration_s)
@@ -219,6 +239,7 @@ class Instruments:
         Off.collect_block = timed(collect_block, self.collect_s)
         Off.train_block = timed(counted_train_block, self.train_s)
         Off.evaluate = timed(off_evaluate, self.eval_s)
+        TrainLogger.log_episode = logged
         return self
 
     def __exit__(self, *exc):
@@ -334,7 +355,8 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         device=torch.cuda.get_device_name(0) if platform != "cpu" else "cpu",
         env_steps=budget, iterations=iters, wall_s=wall, env_steps_per_s=budget / wall,
         iteration_s=ins.iteration_s, eval_s=ins.eval_s,
-        **(dict(collect_s=ins.collect_s, train_s=ins.train_s) if is_off_policy(name) else {}),
+        **(dict(collect_s=ins.collect_s, train_s=ins.train_s, learners=ins.learners)
+           if is_off_policy(name) else {}),
         peak_cuda_bytes=torch.cuda.max_memory_allocated() if platform != "cpu" else None,
         peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         gae_launches=launches, gae_launches_per_iteration=launches / max(iters, 1),

@@ -26,8 +26,8 @@ from harl_tpu_torch.envs.mamujoco.native_vec import NativeMAMuJoCoVec
 from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.utils import convert
 
-from tests.test_torch_runner_off_policy import BATCH, _queue_train
-from tests.torch_replay import ReplayNoise, queue_host_off_policy_steps
+from tests.test_torch_runner_off_policy import BATCH
+from tests.torch_replay import ReplayNoise, queue_host_off_policy_steps, queue_train
 
 B, WARM, EXPLORE = 4, 2, 2
 DATA_RTOL, DATA_ATOL = 1e-4, 2e-4
@@ -92,7 +92,7 @@ def test_host_steps_and_train_block_match_jax(algo):
     dims = [sp.shape[0] for sp in jr.act_spaces]
     rng = queue_host_off_policy_steps(noise, js.rng, WARM, [("uniform", (B, d)) for d in dims])
     rng = queue_host_off_policy_steps(noise, rng, EXPLORE, [("normal", (B, d)) for d in dims])
-    _queue_train(noise, jr, rng, EXPLORE, cur_size=(WARM + EXPLORE) * B)
+    queue_train(noise, jr, rng, EXPLORE, cur_size=(WARM + EXPLORE) * B, batch=BATCH)
 
     js, _ = jr._host_steps(js, WARM, explore="random")
     js, jcm = jr._host_steps(js, EXPLORE, explore=True)

@@ -272,8 +272,9 @@ def test_script_end_to_end_on_the_cpu(tmp_path):
 def test_script_trains_the_off_policy_run_on_the_cpu(tmp_path):
     """The HASAC run with ``--platform cpu``, cut to 3 blocks at tiny
     widths: no GAE launch, the ring's rows at the end min(warmup + steps,
-    buffer_size) = min(40 + 60, 70), a record (with its evaluation) every
-    2 blocks and at the last, the train-return curve written."""
+    buffer_size) = min(40 + 60, 70), a record (with its evaluation, the
+    α and the critic loss) every 2 blocks and at the last, the
+    train-return curve written."""
     name = "halfcheetah_6x1_hasac"
     out = subprocess.run(
         [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", name, "--seeds", "1",
@@ -290,6 +291,11 @@ def test_script_trains_the_off_policy_run_on_the_cpu(tmp_path):
         lines = (tmp_path / "out" / f"{name}_s1_{key}.csv").read_text().splitlines()
         assert [int(line.split(",")[0]) for line in lines] == [80, 100]
         assert all(np.isfinite(float(line.split(",")[1])) for line in lines)
+    # at each record: every agent's α, the critic's α and the critic loss
+    assert [r["steps"] for r in rec["learners"]] == [80, 100]
+    for r in rec["learners"]:
+        assert len(r["alpha"]) == 6 and all(0 < a < 8 for a in r["alpha"] + [r["critic_alpha"]])
+        assert np.isfinite(r["critic_loss"])
     rows = [r for r in out.stdout.splitlines() if r.startswith(f"| {name} |")]
     assert len(rows) == 4 and all("| cut |" in r and "0; ring rows 70" in r for r in rows)
     # a ring smaller than the run's rows: the check catches a wrong count

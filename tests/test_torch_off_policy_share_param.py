@@ -20,8 +20,9 @@ from harl_tpu.utils.config_tools import get_defaults_yaml_args as jdefaults
 from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.utils import convert
 
-from tests.test_torch_runner_off_policy import BATCH, _queue_train
-from tests.torch_replay import ReplayNoise, mpe_reset_noise, normal, step_mpe_reset_noise, uniform
+from tests.test_torch_runner_off_policy import BATCH
+from tests.torch_replay import (ReplayNoise, mpe_reset_noise, normal, queue_train,
+                                step_mpe_reset_noise, uniform)
 
 B = 4
 # the earlier off-policy runner tolerances (tests/test_torch_runner_off_policy.py)
@@ -86,7 +87,7 @@ def test_share_param_blocks_match_jax(algo, updates):
 
     rng = _queue_steps(noise, js.rng, 2, act_dims, N, noise.uniforms, uniform)
     rng = _queue_steps(noise, rng, 2, act_dims, N, noise.actions, normal)
-    _queue_train(noise, jr, rng, 2, cur_size=4 * B)
+    queue_train(noise, jr, rng, 2, cur_size=4 * B, batch=BATCH)
 
     js = jr.warmup_block(js)
     js, jcm = jr.collect_block(js)

@@ -17,7 +17,6 @@ one HASAC case runs the bench's 6x1 split.
 import copy
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -26,7 +25,8 @@ from harl_tpu.utils.config_tools import get_defaults_yaml_args as jdefaults
 from harl_tpu_torch.runners.off_policy import OffPolicyRunner
 from harl_tpu_torch.utils import convert
 
-from tests.torch_replay import ReplayNoise, normal, reset_noise, step_reset_noise, uniform
+from tests.torch_replay import (ReplayNoise, queue_collect, queue_train, queue_warmup,
+                                reset_noise)
 
 B, DOF, BATCH = 4, 9, 16
 # The env runs float32 physics free for 4 steps of 5 substeps, as in
@@ -38,8 +38,8 @@ DATA_RTOL, DATA_ATOL = 1e-4, 2e-4
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 
 CASES = [("hasac", "2x3", {}), ("hasac", "2x3", {"auto_alpha": True}),
-         ("hasac", "6x1", {}), ("hatd3", "2x3", {}), ("haddpg", "2x3", {}),
-         ("matd3", "2x3", {}), ("maddpg", "2x3", {})]
+         ("hasac", "6x1", {}), ("hasac", "6x1", {"auto_alpha": True}), ("hatd3", "2x3", {}),
+         ("haddpg", "2x3", {}), ("matd3", "2x3", {}), ("maddpg", "2x3", {})]
 
 
 def _configs(algo, conf, algo_updates):
@@ -77,52 +77,6 @@ def _load(ts, js, algo):
     ts.critic.targets.load_state_dict(convert.q_nets_state_dict(_np(js.critic.target_params)))
 
 
-def _queue_warmup(noise, rng, steps, act_dims):
-    rng, k = jax.random.split(rng)
-    for kk in jax.random.split(k, steps):
-        k1, k2 = jax.random.split(kk)
-        for i, d in enumerate(act_dims):
-            noise.uniforms.append(uniform(jax.random.fold_in(k1, i), (B, d)))
-        noise.resets.append(step_reset_noise(k2, B, DOF))
-    return rng
-
-
-def _queue_collect(noise, rng, steps, act_dims):
-    rng, k = jax.random.split(rng)
-    for kk in jax.random.split(k, steps):
-        k1, k2 = jax.random.split(kk)
-        for i, d in enumerate(act_dims):
-            noise.actions.append(normal(jax.random.fold_in(k1, i), (B, d)))
-        noise.resets.append(step_reset_noise(k2, B, DOF))
-    return rng
-
-
-def _queue_train(noise, jr, rng, n_updates, cur_size, total_it=0):
-    act_dims, N = [sp.shape[0] for sp in jr.act_spaces], jr.n_agents
-    for _ in range(n_updates):
-        rng, k_sample, k_next, k_actor, k_order = jax.random.split(rng, 5)
-        noise.starts.append((cur_size, np.asarray(
-            jax.random.randint(k_sample, (BATCH,), 0, jnp.int32(cur_size)))))
-        if jr.algo in ("hasac", "hatd3", "matd3"):
-            for i, d in enumerate(act_dims):
-                noise.actions.append(normal(jax.random.fold_in(k_next, i), (BATCH, d)))
-        total_it += 1
-        if total_it % jr.policy_freq:
-            continue
-        if jr.algo == "hasac":
-            for i, d in enumerate(act_dims):
-                noise.actions.append(normal(jax.random.fold_in(k_actor, 100 + i), (BATCH, d)))
-        order = range(N)
-        if jr.algo not in ("maddpg", "matd3") and not jr.fixed_order:
-            order = np.asarray(jax.random.permutation(k_order, N))
-            noise.perms.append(order)
-        if jr.algo == "hasac":
-            for i in order:
-                noise.actions.append(normal(jax.random.fold_in(k_actor, int(i)),
-                                            (BATCH, act_dims[i])))
-    return rng
-
-
 @pytest.mark.parametrize("algo,conf,updates", CASES,
                          ids=[f"{a}-{c}{'-auto_alpha' if u else ''}" for a, c, u in CASES])
 def test_blocks_match_jax(algo, conf, updates):
@@ -140,9 +94,9 @@ def test_blocks_match_jax(algo, conf, updates):
     ts = tr.init_state(0)
     _load(ts, js, algo)
 
-    rng = _queue_warmup(noise, js.rng, 2, act_dims)
-    rng = _queue_collect(noise, rng, 2, act_dims)
-    _queue_train(noise, jr, rng, 2, cur_size=4 * B)
+    rng = queue_warmup(noise, js.rng, 2, act_dims, B, DOF)
+    rng = queue_collect(noise, rng, 2, act_dims, B, DOF)
+    queue_train(noise, jr, rng, 2, cur_size=4 * B, batch=BATCH)
 
     js = jr.warmup_block(js)
     js, jcm = jr.collect_block(js)

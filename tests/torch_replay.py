@@ -8,6 +8,7 @@ functions below re-derive the JAX draws from the same keys.
 from collections import deque
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -241,6 +242,87 @@ def queue_host_off_policy_steps(noise, rng, steps, draws):
         for i, (kind, shape, *high) in enumerate(draws):
             _draw(noise, kind, jax.random.fold_in(k1, i), shape, *high)
     return rng
+
+
+def queue_warmup(noise, rng, steps, act_dims, n_envs, dof):
+    """Queue the draws of ``steps`` steps of the JAX runner's Box warmup
+    (``warmup_block``, off_policy.py:370-385) on ``n_envs`` planar envs of
+    ``dof`` degrees of freedom: agent i's uniforms from ``fold_in(k1, i)``,
+    the env's reset draws from ``k2``. Returns the rng after the block."""
+    rng, k = jax.random.split(rng)
+    for kk in jax.random.split(k, steps):
+        k1, k2 = jax.random.split(kk)
+        for i, d in enumerate(act_dims):
+            noise.uniforms.append(uniform(jax.random.fold_in(k1, i), (n_envs, d)))
+        noise.resets.append(step_reset_noise(k2, n_envs, dof))
+    return rng
+
+
+def queue_collect(noise, rng, steps, act_dims, n_envs, dof):
+    """Queue the draws of a JAX Box collect block of ``steps`` steps
+    (``collect_block``, off_policy.py:387-408): agent i's exploration
+    normals from ``fold_in(k1, i)``, the reset draws from ``k2``. Returns
+    the rng after the block."""
+    rng, k = jax.random.split(rng)
+    for kk in jax.random.split(k, steps):
+        k1, k2 = jax.random.split(kk)
+        for i, d in enumerate(act_dims):
+            noise.actions.append(normal(jax.random.fold_in(k1, i), (n_envs, d)))
+        noise.resets.append(step_reset_noise(k2, n_envs, dof))
+    return rng
+
+
+def queue_train(noise, jr, rng, n_updates, cur_size, batch, total_it=0):
+    """Queue the draws of ``n_updates`` updates of the JAX runner ``jr``'s
+    ``train_block`` (Box actions, off_policy.py:410-491), each from
+    ``split(rng, 5)``: the replay starts over ``cur_size`` rows, the
+    next-action or target smoothing normals, and on a policy step HASAC's
+    initial-action normals (``fold_in(k_actor, 100 + i)``), the agent
+    permutation and HASAC's agent normals in update order. ``total_it``
+    is the update count before the first. Returns the rng after them."""
+    act_dims, N = [sp.shape[0] for sp in jr.act_spaces], jr.n_agents
+    for _ in range(n_updates):
+        rng, k_sample, k_next, k_actor, k_order = jax.random.split(rng, 5)
+        noise.starts.append((cur_size, np.asarray(
+            jax.random.randint(k_sample, (batch,), 0, jnp.int32(cur_size)))))
+        if jr.algo in ("hasac", "hatd3", "matd3"):
+            for i, d in enumerate(act_dims):
+                noise.actions.append(normal(jax.random.fold_in(k_next, i), (batch, d)))
+        total_it += 1
+        if total_it % jr.policy_freq:
+            continue
+        if jr.algo == "hasac":
+            for i, d in enumerate(act_dims):
+                noise.actions.append(normal(jax.random.fold_in(k_actor, 100 + i), (batch, d)))
+        order = range(N)
+        if jr.algo not in ("maddpg", "matd3") and not jr.fixed_order:
+            order = np.asarray(jax.random.permutation(k_order, N))
+            noise.perms.append(order)
+        if jr.algo == "hasac":
+            for i in order:
+                noise.actions.append(normal(jax.random.fold_in(k_actor, int(i)),
+                                            (batch, act_dims[i])))
+    return rng
+
+
+def late_state(state, count=None, log_alpha=None):
+    """The JAX runner's off-policy ``state`` with every ``optax.adam``
+    count (the networks', and α's) set to ``count`` and every log α (each
+    agent's and the critic's) to ``log_alpha``, where not None: what a long
+    run reaches, set in place of running it."""
+    def visit(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            f = {k: visit(v) for k, v in x._asdict().items()}
+            if count is not None and {"count", "mu", "nu"} <= set(f):
+                f["count"] = jnp.asarray(count, jnp.int32)
+            if log_alpha is not None and f.get("log_alpha") is not None:
+                f["log_alpha"] = jnp.asarray(log_alpha, jnp.float32)
+            return type(x)(**f)
+        if isinstance(x, (tuple, list)):
+            return type(x)(visit(v) for v in x)
+        return x
+
+    return visit(state)
 
 
 def gumbel_noise(key, shape):
