@@ -11,10 +11,12 @@ Run it from the root of the repository (the run table's paths are
 relative to it). ``RUNS`` holds one entry a run: the argv of the JAX command that produced
 the record (``scripts/r3_queue5.sh:12-21``; round 1 of ``VALIDATION.md``
 for HalfCheetah HAPPO; ``scripts/r2_queue.sh:13`` for HalfCheetah HASAC,
-cut at the step where that run's time limit cut it), the GAE shape the
-run gives the kernel (None for the off-policy run, which launches none),
-and the record itself, as read from ``validation/r3/*_won.csv``,
-``validation/r2/cheetah6x1_hasac_train.csv`` or ``VALIDATION.md``
+cut at the step where that run's time limit cut it; ``scripts/r2_tail.sh:20``
+and ``scripts/r3_queue5.sh:51-58`` for MPE simple_spread's HAPPO, MAPPO,
+HAA2C and HAD3QN), the GAE shape the run gives the kernel (None for an
+off-policy run, which launches none), and the record itself, as read from
+``validation/r3/*_won.csv``, ``validation/r2/cheetah6x1_hasac_train.csv``,
+the MPE runs' ``*_eval.csv`` or ``VALIDATION.md``
 (``tests/test_torch_learning_parity.py`` holds the two equal). Each run
 takes ``--seed s`` for every seed asked for; seed 1 is the JAX runs' seed.
 
@@ -48,14 +50,24 @@ run's own inputs at the first iteration (bound: 1e-5 of the largest
 return) with its warm time and byte bound there, and the run's values at
 the record's steps. An off-policy run launches no GAE kernel: it must
 launch it 0 times, and records instead the replay ring's rows at the end,
-which must equal min(warmup + steps, buffer_size), and at every log record
-(``learners``) each agent's α, the critic's α and the last train block's
-critic loss.
+which must equal min(warmup + steps, buffer_size), under discrete actions
+its availability rows, each of which must be written, and at every log
+record (``learners``, also printed to the run's log) each agent's α, the
+critic's α (None where the algorithm has none, as HAD3QN), the last train
+block's critic loss and, for each agent, the share of the raw log-std
+elements below the squashed Gaussian's floor (``LOG_STD_MIN``) in the
+samples its actor's loss was taken through since the last record (None
+without a squashed Gaussian).
 
 The rule: a run **meets** its record when, at every step the record
 names, the median of the port's seeds is no lower than the record less a
 tolerance: 0.05 absolute for a score rate, 10 % of the record for
-HalfCheetah's ``mean_step_reward`` and for an episode return. Higher than
+HalfCheetah's ``mean_step_reward`` and for an episode return. An MPE
+run's record is windowed: each point is the mean of the JAX run's five
+evaluations ending at its step (a single 20-episode evaluation is noisy),
+a seed's value the mean of its own evaluations at those five steps, and a
+seed that lacks any of them has not reached the point; the rule is the
+return's. Higher than
 the record is fine: each record is one seed. A run whose seeds did not reach a record's step is
 ``cut``. The script prints one row a run with each seed's value, the
 median, the record and the verdict, and exits non-zero if a child failed.
@@ -85,8 +97,15 @@ def _academy(scenario: str) -> tuple:
             *ACADEMY)
 
 
+def _mpe(actions: str, algo: str, steps: int) -> tuple:
+    return ("--load_config", f"tuned_configs/pettingzoo_mpe/simple_spread_v2-{actions}/{algo}/"
+            "config.json", "--num_env_steps", str(steps))
+
+
 # name: argv of the JAX run, the GAE shape (T, b) in situ, the metric, and
-# the record as ((step, value), ...) with its source
+# the record as ((step, value), ...) with its source; with ``window`` (k,
+# every), each value is the mean of the JAX run's k evaluations, ``every``
+# env-steps apart, that end at the step
 RUNS = {
     "football_pass_and_shoot_with_keeper": dict(
         argv=_academy("academy_pass_and_shoot_with_keeper"), shape=(200, 256), metric="won",
@@ -121,12 +140,48 @@ RUNS = {
         shape=None, metric="mean_episode_return",
         record=((210000, 2072.57), (410000, 5116.86), (610000, 5590.83), (810000, 5782.47)),
         source="validation/r2/cheetah6x1_hasac_train.csv"),
+    # MPE simple_spread: the JAX runs of scripts/r2_tail.sh:20 and
+    # scripts/r3_queue5.sh:51-58, held at the middle and the end of the budget
+    "mpe_spread_happo": dict(
+        argv=_mpe("continuous", "happo", 4000000), shape=(200, 20), metric="eval",
+        window=(5, 100000), record=((2000000, -68.102), (4000000, -58.112)),
+        source="validation/r2/mpe_spread_happo_eval.csv"),
+    "mpe_spread_mappo": dict(
+        argv=_mpe("continuous", "mappo", 4000000), shape=(200, 20), metric="eval",
+        window=(5, 100000), record=((2000000, -79.894), (4000000, -77.762)),
+        source="validation/r3/mpe_spread_mappo_eval.csv"),
+    "mpe_spread_haa2c": dict(
+        argv=_mpe("continuous", "haa2c", 4000000), shape=(200, 20), metric="eval",
+        window=(5, 100000), record=((2000000, -106.41), (4000000, -109.252)),
+        source="validation/r3/mpe_spread_haa2c_eval.csv",
+        note="the JAX run barely learned: -103.62 at its first evaluation"),
+    "mpe_spread_had3qn": dict(
+        argv=_mpe("discrete", "had3qn", 3000000), shape=None, metric="eval",
+        window=(5, 20000), record=((1510000, -69.1832), (3010000, -62.4823)),
+        source="validation/r3/mpe_spread_had3qn_eval.csv"),
 }
 # the score rate's tolerance (absolute) and a reward's or return's (of the record)
 RATE_TOL = 0.05
 REWARD_TOL = 0.10
 # in-situ GAE: max |kernel - plain| at most this much of the largest return
 GAE_REL_BOUND = 1e-5
+
+
+def window_steps(name: str, step: int) -> list:
+    """The steps whose evaluations a record point of ``name`` averages:
+    the step alone, or the window of k evaluations ending there."""
+    k, every = RUNS[name].get("window", (1, 0))
+    return [step - j * every for j in range(k - 1, -1, -1)]
+
+
+def value_at(name: str, curve: dict, step: int):
+    """A seed's value at a record point from its curve {step: value}: the
+    mean over the point's window, None where the curve lacks any of its
+    steps (the seed has not reached the point)."""
+    steps = window_steps(name, step)
+    if any(s not in curve for s in steps):
+        return None
+    return statistics.fmean(curve[s] for s in steps)
 
 
 def tolerance(metric: str, record: float) -> float:
@@ -156,8 +211,10 @@ class Instruments:
     """For the duration of a ``with``: each ``train_iteration``'s (each
     off-policy collect and train block's) and each evaluation's seconds,
     the replay ring's rows after the last train block, at each off-policy
-    log record the α of every agent and of the critic (auto-α) and the
-    last train block's critic loss (``learners``), and on the first GAE
+    log record the α of every agent and of the critic (auto-α), the
+    last train block's critic loss and each agent's share of raw log-std
+    elements below ``LOG_STD_MIN`` in its actor's loss samples since the
+    last record (``learners``), and on the first GAE
     call of the run the kernel held against ``gae_reference`` on its own
     inputs (and, on CUDA, timed warm; those launches are not counted)."""
 
@@ -165,12 +222,14 @@ class Instruments:
         self.device = device
         self.iteration_s, self.eval_s, self.in_situ, self.ring_rows = [], [], None, None
         self.collect_s, self.train_s, self.learners = [], [], []
-        self.off_state = self.off_loss = None
+        self.off_state = self.off_loss = self.pending = self.discrete = None
+        self.clamped = {}    # id(actor state): (log-std elements below the floor, elements)
 
     def __enter__(self):
         import torch
 
         from harl_tpu_torch.logging.logger import TrainLogger
+        from harl_tpu_torch.ops import distributions as D
         from harl_tpu_torch.ops import gae_kernels as K
         from harl_tpu_torch.runners import off_policy, on_policy
 
@@ -181,10 +240,12 @@ class Instruments:
                       (on_policy.OnPolicyRunner, "evaluate", on_policy.OnPolicyRunner.evaluate),
                       (Off, "collect_block", Off.collect_block),
                       (Off, "train_block", Off.train_block), (Off, "evaluate", Off.evaluate),
-                      (TrainLogger, "log_episode", TrainLogger.log_episode)]
+                      (TrainLogger, "log_episode", TrainLogger.log_episode),
+                      (D, "squashed_gaussian_sample", D.squashed_gaussian_sample),
+                      (Off, "_step_actor", Off._step_actor)]
         ((_, _, compute_gae), (_, _, train_iteration), (_, _, evaluate),
          (_, _, collect_block), (_, _, train_block), (_, _, off_evaluate),
-         (_, _, log_episode)) = self.saved
+         (_, _, log_episode), (_, _, sample), (_, _, step_actor)) = self.saved
 
         def sync():
             if self.device == "cuda":
@@ -220,17 +281,40 @@ class Instruments:
             out = train_block(runner, state)
             self.ring_rows = out[0].buffer.cur_size
             self.off_state, self.off_loss = out[0], out[1]["critic_loss"]
+            self.discrete = runner.discrete
             return out
 
         def alpha(st):
             return None if st.log_alpha is None else float(torch.exp(st.log_alpha.detach()))
+
+        def counted_sample(mu, log_std, eps, act_limit, deterministic=False):
+            # the sample an actor's loss is taken through (the only one
+            # made with gradients on): its raw log-std against the floor
+            if torch.is_grad_enabled() and not deterministic:
+                self.pending = (log_std.detach() < D.LOG_STD_MIN).sum(), log_std.numel()
+            return sample(mu, log_std, eps, act_limit, deterministic)
+
+        def counted_step_actor(runner, st, loss):
+            if self.pending is not None:
+                below, n = self.clamped.get(id(st), (0, 0))
+                self.clamped[id(st)] = below + self.pending[0], n + self.pending[1]
+                self.pending = None
+            return step_actor(runner, st, loss)
+
+        def clamped_share(st):
+            below, n = self.clamped.get(id(st), (0, 0))
+            return float(below) / n if n else None
 
         def logged(logger, record):
             if self.off_state is not None:      # the learners a record was made after
                 st = self.off_state
                 self.learners.append(dict(
                     steps=record["steps"], critic_loss=float(self.off_loss),
-                    alpha=[alpha(a) for a in st.actors], critic_alpha=alpha(st.critic)))
+                    alpha=[alpha(a) for a in st.actors], critic_alpha=alpha(st.critic),
+                    log_std_below_min=[clamped_share(a) for a in st.actors]))
+                self.clamped = {}
+                # in the run's log too, should the run be cut before its record
+                print("learners", json.dumps(self.learners[-1]), flush=True)
             return log_episode(logger, record)
 
         on_policy.compute_gae = checked_gae
@@ -240,6 +324,8 @@ class Instruments:
         Off.train_block = timed(counted_train_block, self.train_s)
         Off.evaluate = timed(off_evaluate, self.eval_s)
         TrainLogger.log_episode = logged
+        D.squashed_gaussian_sample = counted_sample
+        Off._step_actor = counted_step_actor
         return self
 
     def __exit__(self, *exc):
@@ -330,15 +416,19 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         run_dir = train.main(argv)
     wall = time.perf_counter() - t0
     launches = K.gae.launches - launches0
+    avail_rows = None
     if is_off_policy(name):   # a block: its collect and its train
         ins.iteration_s = [c + t for c, t in zip(ins.collect_s, ins.train_s)]
+        avail_rows = written_avail_rows(ins.off_state.buffer)
+        expect["discrete"] = ins.discrete
     iters = len(ins.iteration_s)
     situ = ins.in_situ
     if run_dir is None:
         # a rank other than 0: nothing written, its own kernel checked
         print(f"{name} seed {seed}: a rank of {ranks}, {iters} iterations, gae launches "
               f"{launches}; {situ_text(situ, ins.ring_rows)}", flush=True)
-        check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect)
+        check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect,
+                   avail_rows)
         return {}
     curves = read_curves(run_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -360,8 +450,9 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
         peak_cuda_bytes=torch.cuda.max_memory_allocated() if platform != "cpu" else None,
         peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         gae_launches=launches, gae_launches_per_iteration=launches / max(iters, 1),
-        gae_in_situ=ins.in_situ, ring_rows=ins.ring_rows, metric=spec["metric"],
-        at_record={str(step): values.get(step) for step, _ in spec["record"]},
+        gae_in_situ=ins.in_situ, ring_rows=ins.ring_rows, avail_rows=avail_rows,
+        metric=spec["metric"],
+        at_record={str(step): value_at(name, values, step) for step, _ in spec["record"]},
         run_dir=run_dir)
     with open(f"{stem}.json", "w") as f:
         json.dump(rec, f, indent=1)
@@ -370,8 +461,20 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
           f"{[round(s, 2) for s in ins.eval_s]} s; gae launches {launches}; "
           f"{situ_text(situ, ins.ring_rows)}; at the record {rec['at_record']} on "
           f"{card_label(rec)}", flush=True)
-    check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect)
+    check_rank(name, seed, platform, launches, iters, situ, ins.ring_rows, expect, avail_rows)
     return rec
+
+
+def written_avail_rows(buffer):
+    """Of the ring's rows written so far, how many hold an availability row
+    with an action available, for each agent's ``available_actions`` and
+    then each agent's ``next_available_actions``; None where the ring keeps
+    no availability (Box actions). A row never written is all zeros."""
+    if buffer.available_actions is None:
+        return None
+    rows = buffer.cur_size
+    return [int((a[:rows].sum(dim=-1) > 0).sum())
+            for a in (*buffer.available_actions, *buffer.next_available_actions)]
 
 
 def situ_text(situ: dict, ring_rows: int) -> str:
@@ -382,15 +485,23 @@ def situ_text(situ: dict, ring_rows: int) -> str:
 
 
 def check_rank(name: str, seed: int, platform: str, launches: int, iters: int, situ: dict,
-               ring_rows: int, expect: dict) -> None:
+               ring_rows: int, expect: dict, avail_rows: list = None) -> None:
     """Raise unless the GAE kernel ran once an iteration (on a card) and
     its in-situ error at the rank's (T, b), ``expect["shape"]``, is within
-    bound; for an off-policy run, unless it never ran and the ring holds
-    ``expect["ring_rows"]`` rows."""
+    bound; for an off-policy run, unless it never ran, the ring holds
+    ``expect["ring_rows"]`` rows and, under discrete actions
+    (``expect["discrete"]``), each of those rows holds its availability
+    (``avail_rows``, of ``written_avail_rows``; None under Box actions)."""
     if "ring_rows" in expect:
         if launches != expect["launches"] or ring_rows != expect["ring_rows"]:
             raise AssertionError(f"{name} seed {seed}: gae launched {launches} times, the "
                                  f"ring holds {ring_rows} rows; expected {expect}")
+        if expect.get("discrete") and (not avail_rows
+                                       or any(r != ring_rows for r in avail_rows)):
+            raise AssertionError(f"{name} seed {seed}: availability written in {avail_rows} "
+                                 f"of the ring's {ring_rows} rows")
+        if not expect.get("discrete") and avail_rows is not None:
+            raise AssertionError(f"{name} seed {seed}: availability kept under Box actions")
         return
     shape = expect["shape"]
     if platform != "cpu" and launches != iters:
@@ -454,9 +565,13 @@ def table(out_dir: str, names) -> tuple:
                                f"{r['gae_in_situ']['max_abs_err']:.2g} / "
                                f"{r['gae_in_situ']['max_abs_return']:.3g}") for r in recs)
             cards = "; ".join(sorted({card_label(r) for r in recs}))
+            steps = window_steps(name, step)
+            where = (f"{step:,}" if len(steps) == 1 else
+                     f"{steps[0]:,}–{step:,} (mean of {len(steps)} evaluations)")
             lines.append(
-                f"| {name} | {step:,} | {by_seed} | {'—' if med is None else f'{med:.4g}'} | "
-                f"{spec['metric']} {record} ({spec['source']}) | "
+                f"| {name} | {where} | {by_seed} | {'—' if med is None else f'{med:.4g}'} | "
+                f"{spec['metric']} {record} ({spec['source']}"
+                f"{'; ' + spec['note'] if 'note' in spec else ''}) | "
                 f"{tolerance(spec['metric'], record):.3g} | {word} | {rates} "
                 f"({max(r['concurrent'] for r in recs)}) | {walls} | {gae} | {cards} |")
         verdicts[name] = ("misses" if "misses" in seen else

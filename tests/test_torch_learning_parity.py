@@ -1,13 +1,14 @@
 """``scripts/torch_learning_parity.py`` on the CPU: each run of its table
 resolves to the very experiment of the JAX record (configs and lr
 schedules equal to the JAX CLI's), its records equal the committed JAX
-curves, the meets/misses rule, and the script end to end at a tiny size,
-the off-policy HASAC run too."""
+curves, the meets/misses rule (windowed for the MPE runs), and the script end to
+end at a tiny size, the off-policy HASAC and HAD3QN runs too."""
 import argparse
 import copy
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -81,23 +82,38 @@ def test_runs_resolve_to_the_jax_experiment(name):
     got = train.resolve_args(_argv(name))
     want = jax_resolve(_argv(name))
     assert got == want
+    # the JAX commands' own --exp_name names the log directory only
+    for exp_name in ("val_r3", "parity_r2"):
+        other = train.resolve_args(_argv(name) + ["--exp_name", exp_name])
+        assert other[0] == dict(got[0], exp_name=exp_name) and other[1:] == got[1:]
     tr = got[1]["train"]
     assert got[1]["seed"] == {"seed_specify": True, "seed": 2}
-    last = max(step for step, _ in parity.RUNS[name]["record"])
+    spec = parity.RUNS[name]
+    last = max(step for step, _ in spec["record"])
     budget, step = parity.budget_of(name, tr)
+    # the steps a record point averages are evaluations of the port's run
     if parity.is_off_policy(name):
-        # 20 envs as the JAX run; its log points are warmup + 200 blocks of
+        # 20 envs as the JAX run; its log points are warmup + blocks of
         # 1,000 env-steps apart, and the budget ends at the record's last
         n, ti = tr["n_rollout_threads"], tr["train_interval"]
-        assert (n, ti, tr["warmup_steps"], tr["eval_interval"]) == (20, 50, 10000, 10000)
-        assert (budget, step) == (800000, 1000)
-        assert tr["warmup_steps"] + budget == last
-        assert all((s - tr["warmup_steps"]) % (tr["eval_interval"] // ti * step) == 0
-                   for s, _ in parity.RUNS[name]["record"])
-        return
-    T, n = parity.RUNS[name]["shape"]
-    assert (tr["episode_length"], tr["n_rollout_threads"]) == (T, n)
-    assert budget >= last
+        evals = tr["warmup_steps"], tr["eval_interval"] // ti * step
+        want_tr = {"halfcheetah_6x1_hasac": ((20, 50, 10000, 10000), 800000),
+                   "mpe_spread_had3qn": ((20, 50, 10000, 1000), 3000000)}[name]
+        assert ((n, ti, tr["warmup_steps"], tr["eval_interval"]), budget) == want_tr
+        assert step == 1000 and tr["warmup_steps"] + budget == last
+    else:
+        T, n = spec["shape"]
+        assert (tr["episode_length"], tr["n_rollout_threads"]) == (T, n)
+        assert budget >= last
+        evals = 0, tr["eval_interval"] * step
+    if "window" in spec:
+        assert spec["window"][1] == evals[1]
+    if "window" in spec or parity.is_off_policy(name):
+        # (an on-policy run also evaluates at its last iteration: the
+        # football records' last points)
+        windows = [parity.window_steps(name, s) for s, _ in spec["record"]]
+        assert all(evals[0] < w and (w - evals[0]) % evals[1] == 0 and w <= evals[0] + budget
+                   for ws in windows for w in ws)
 
 
 def _jax_lrs(tx, eps: float, steps: int) -> np.ndarray:
@@ -138,9 +154,10 @@ def test_lr_schedules_equal_over_the_budget(name):
     decay = algo_args["train"]["use_linear_lr_decay"]
     assert decay == (name in ("football_pass_and_shoot_with_keeper",
                               "football_counterattack_easy"))
+    epochs = al["a2c_epoch"] if args["algo"] == "haa2c" else al["ppo_epoch"]
     for opt, tx, updates, lr in (
             (state.actors[0].opt, jrunner.actors[0].tx,
-             al["ppo_epoch"] * al["actor_num_mini_batch"], md["lr"]),
+             epochs * al["actor_num_mini_batch"], md["lr"]),
             (state.critic.opt, jrunner.critic.tx,
              al["critic_epoch"] * al["critic_num_mini_batch"], md["critic_lr"])):
         steps = runner.episodes * updates
@@ -155,19 +172,24 @@ def test_lr_schedules_equal_over_the_budget(name):
 
 @pytest.mark.parametrize("name", OFF_POLICY_RUNS)
 def test_off_policy_lrs_are_the_jax_runners_constants(name):
-    """The off-policy run's optimizers keep one lr over the whole budget,
+    """Each off-policy run's optimizers keep one lr over the whole budget,
     as the JAX runner's ``optax.adam(lr)`` does (no decay in the tuned
-    config, so cutting its budget changes nothing before the cut): every
-    actor's, the critic's and α's, equal to the JAX runner's."""
+    configs, so cutting a budget changes nothing before the cut): every
+    actor's, the critic's and (HASAC) α's, equal to the JAX runner's;
+    HAD3QN has no α."""
     args, algo_args, env_args = train.resolve_args(_argv(name))
     assert algo_args["train"]["use_linear_lr_decay"] is False
     runner = OffPolicyRunner(args, copy.deepcopy(algo_args), dict(env_args), device="cpu")
     jrunner = JOffRunner(args, copy.deepcopy(algo_args), dict(env_args))
     state = runner.init_state(1)
-    assert len(state.actors) == len(jrunner.actors) == 6
+    hasac = args["algo"] == "hasac"
+    assert len(state.actors) == len(jrunner.actors) == (6 if hasac else 3)
     for st, jactor in zip(state.actors, jrunner.actors):
         assert [g["lr"] for g in st.opt.param_groups] == [jactor.lr]
-        assert [g["lr"] for g in st.alpha_opt.param_groups] == [jrunner.alpha_lr]
+        if hasac:
+            assert [g["lr"] for g in st.alpha_opt.param_groups] == [jrunner.alpha_lr]
+        else:
+            assert st.log_alpha is None and st.alpha_opt is None
         assert not hasattr(st.opt, "lr_schedule")
     assert [g["lr"] for g in state.critic.opt.param_groups] == [jrunner.critic.critic_lr]
     assert jactor.lr == algo_args["model"]["lr"] and \
@@ -179,7 +201,18 @@ def test_records_are_the_committed_jax_results(name):
     """Each record of the run table is what the JAX run committed: its
     score-rate or train-return curve, or the round-1 HalfCheetah reading."""
     spec = parity.RUNS[name]
-    if spec["metric"] != "mean_step_reward":
+    if spec["metric"] == "eval":   # a window's mean, to the record's digits
+        with open(ROOT / spec["source"]) as f:
+            curve = dict((int(s), float(v)) for s, v in (line.split(",") for line in f))
+        assert sorted(curve)[1] - sorted(curve)[0] == spec["window"][1]
+        for step, value in spec["record"]:
+            steps = parity.window_steps(name, step)
+            assert len(steps) == spec["window"][0] == 5 and steps[-1] == step
+            assert parity.value_at(name, curve, step) == pytest.approx(value, abs=5e-5)
+        # the middle of the budget and its end
+        assert [s for s, _ in spec["record"]] == (
+            [1510000, 3010000] if name == "mpe_spread_had3qn" else [2000000, 4000000])
+    elif spec["metric"] != "mean_step_reward":
         with open(ROOT / spec["source"]) as f:
             curve = dict((int(s), float(v)) for s, v in (line.split(",") for line in f))
         for step, value in spec["record"]:
@@ -193,6 +226,16 @@ def test_records_are_the_committed_jax_results(name):
         assert spec["record"] == ((4000000 // (64 * 1024) * 64 * 1024, 4.0),)
 
 
+def _curve(mean: float, missing: int = None) -> dict:
+    """A seed's evaluations over MPE HAPPO's window ending at 2,000,000,
+    spread around ``mean`` (their mean), less the step ``missing``."""
+    curve = {1500000: 0.0, 2100000: 0.0}    # evaluations outside the window count for nothing
+    for k, step in enumerate(range(1600000, 2000001, 100000)):
+        curve[step] = mean + (k - 2) * 0.5
+    curve.pop(missing, None)
+    return curve
+
+
 @pytest.mark.parametrize("metric,values,record,want", [
     ("won", [0.99, 1.0, 0.97], 0.997, "meets"),            # within 0.05
     ("won", [1.0, 1.0, 0.98], 0.934, "meets"),             # better than the record
@@ -204,15 +247,27 @@ def test_records_are_the_committed_jax_results(name):
     ("mean_episode_return", [5300.0, 5210.0, 6100.0], 5782.47, "meets"),  # within 10 %
     ("mean_episode_return", [5100.0, 5200.0, 6100.0], 5782.47, "misses"),  # 5200 < 5204.2
     ("mean_episode_return", [2100.0, 1865.4, 1500.0], 2072.57, "meets"),  # 1865.4 > 1865.31
-    ("won", [], 0.9, "cut")])
+    ("won", [], 0.9, "cut"),
+    # windowed (MPE HAPPO at 2,000,000: record -68.102, floor -74.9122): each
+    # seed's curve over the window 1.6M-2.0M, or one step short of it
+    ("eval", [_curve(-74.91), _curve(-74.91), _curve(-60.0)], -68.102, "meets"),
+    ("eval", [_curve(-74.92), _curve(-74.92), _curve(-60.0)], -68.102, "misses"),
+    ("eval", [_curve(-50.0), _curve(-80.0), _curve(-60.0)], -68.102, "meets"),
+    # the seed at -60 lacks 1.8M: not reached, the median of two -75 misses
+    ("eval", [_curve(-60.0, 1800000), _curve(-60.0), _curve(-90.0)], -68.102, "misses"),
+    ("eval", [_curve(-60.0, 1600000), _curve(-60.0, 2000000)], -68.102, "cut")])
 def test_the_rule(metric, values, record, want):
     """(c) A run meets its record where the median of its seeds is no lower
     than the record less 0.05 (a score rate) or 10 % of it (HalfCheetah's
-    mean step reward, an episode return)."""
+    mean step reward, an episode return, an MPE window's mean return); a
+    seed's window mean needs every step of the window."""
+    if metric == "eval":
+        values = [v for v in (parity.value_at("mpe_spread_happo", c, 2000000) for c in values)
+                  if v is not None]
     med, word = parity.verdict(metric, values, record)
     assert word == want
     if values:
-        assert med == sorted(values)[1]
+        assert med == statistics.median(values)
 
 
 def test_table_verdict_needs_every_point(tmp_path):
@@ -269,40 +324,98 @@ def test_script_end_to_end_on_the_cpu(tmp_path):
         "verdicts": {name: "cut" for name in runs}, "failed": []}
 
 
-def test_script_trains_the_off_policy_run_on_the_cpu(tmp_path):
-    """The HASAC run with ``--platform cpu``, cut to 3 blocks at tiny
-    widths: no GAE launch, the ring's rows at the end min(warmup + steps,
-    buffer_size) = min(40 + 60, 70), a record (with its evaluation, the
-    α and the critic loss) every 2 blocks and at the last, the
-    train-return curve written."""
-    name = "halfcheetah_6x1_hasac"
+@pytest.fixture(scope="module")
+def off_policy_script(tmp_path_factory):
+    """The script on the two off-policy runs at once (``--jobs 2``), cut to 3
+    blocks at tiny widths: its output and its ``--out`` directory."""
+    tmp = tmp_path_factory.mktemp("off_policy")
     out = subprocess.run(
-        [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", name, "--seeds", "1",
-         "--iterations", "3", "--out", str(tmp_path / "out"), "--log_dir",
-         str(tmp_path / "runs"), "--", *TINY_OFF],
+        [sys.executable, str(SCRIPT), "--platform", "cpu", "--runs", ",".join(OFF_POLICY_RUNS),
+         "--seeds", "1", "--jobs", "2", "--iterations", "3", "--out", str(tmp / "out"),
+         "--log_dir", str(tmp / "runs"), "--", *TINY_OFF],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stdout + out.stderr
-    rec = json.loads((tmp_path / "out" / f"{name}_s1.json").read_text())
+    return out, tmp / "out"
+
+
+@pytest.mark.parametrize("name", OFF_POLICY_RUNS)
+def test_script_trains_the_off_policy_run_on_the_cpu(name, off_policy_script):
+    """Each off-policy run (HASAC HalfCheetah, HAD3QN MPE) with ``--platform
+    cpu``, cut to 3 blocks at tiny widths: no GAE launch, the ring's rows at
+    the end min(warmup + steps, buffer_size) = min(40 + 60, 70), every one
+    of them with its availability under discrete actions (HAD3QN), a record
+    (with its evaluation, the α, the critic loss and the clamped log-std
+    share) every 2 blocks and at the last, the train-return curve written."""
+    out, out_dir = off_policy_script
+    hasac = name == "halfcheetah_6x1_hasac"
+    rec = json.loads((out_dir / f"{name}_s1.json").read_text())
     assert (rec["iterations"], rec["env_steps"], rec["gae_launches"]) == (3, 60, 0)
     assert rec["gae_in_situ"] is None and rec["ring_rows"] == 70
+    assert rec["avail_rows"] == (None if hasac else [70] * 6)   # 3 agents, now and next
     assert len(rec["collect_s"]) == len(rec["train_s"]) == 3 and len(rec["eval_s"]) == 2
     for key in ("mean_episode_return", "eval"):
-        lines = (tmp_path / "out" / f"{name}_s1_{key}.csv").read_text().splitlines()
+        lines = (out_dir / f"{name}_s1_{key}.csv").read_text().splitlines()
         assert [int(line.split(",")[0]) for line in lines] == [80, 100]
         assert all(np.isfinite(float(line.split(",")[1])) for line in lines)
-    # at each record: every agent's α, the critic's α and the critic loss
+    # at each record: every agent's α, the critic's α, the critic loss and
+    # each agent's share of log-std elements under the floor (HAD3QN: none)
     assert [r["steps"] for r in rec["learners"]] == [80, 100]
     for r in rec["learners"]:
-        assert len(r["alpha"]) == 6 and all(0 < a < 8 for a in r["alpha"] + [r["critic_alpha"]])
         assert np.isfinite(r["critic_loss"])
+        if hasac:
+            assert len(r["alpha"]) == 6 and all(0 < a < 8 for a in r["alpha"] + [r["critic_alpha"]])
+            assert len(r["log_std_below_min"]) == 6
+            assert all(0 <= x <= 1 for x in r["log_std_below_min"])
+        else:
+            assert r["alpha"] == [None] * 3 and r["critic_alpha"] is None
+            assert r["log_std_below_min"] == [None] * 3
     rows = [r for r in out.stdout.splitlines() if r.startswith(f"| {name} |")]
-    assert len(rows) == 4 and all("| cut |" in r and "0; ring rows 70" in r for r in rows)
-    # a ring smaller than the run's rows: the check catches a wrong count
+    assert len(rows) == len(parity.RUNS[name]["record"])
+    assert all("| cut |" in r and "0; ring rows 70" in r for r in rows)
+    # a ring smaller than the run's rows, an availability row not written:
+    # the check catches a wrong count
+    want = dict(launches=0, ring_rows=70, discrete=not hasac)
     with pytest.raises(AssertionError, match="ring holds 69 rows"):
-        parity.check_rank(name, 1, "cpu", 0, 3, None, 69, dict(launches=0, ring_rows=70))
+        parity.check_rank(name, 1, "cpu", 0, 3, None, 69, want, rec["avail_rows"])
     with pytest.raises(AssertionError, match="gae launched 1 times"):
-        parity.check_rank(name, 1, "cpu", 1, 3, None, 70, dict(launches=0, ring_rows=70))
+        parity.check_rank(name, 1, "cpu", 1, 3, None, 70, want, rec["avail_rows"])
+    if not hasac:
+        for avail in ([70] * 5 + [69], None):
+            with pytest.raises(AssertionError, match="availability written"):
+                parity.check_rank(name, 1, "cpu", 0, 3, None, 70, want, avail)
+    else:
+        with pytest.raises(AssertionError, match="availability kept"):
+            parity.check_rank(name, 1, "cpu", 0, 3, None, 70, want, [70])
+
+
+def test_instruments_count_the_clamped_log_std(tmp_path):
+    """The clamped share counts the raw log-std elements under the floor
+    in the samples each actor's loss goes through, per actor, since the
+    last record: actor 1's log-std head planted at -10 counts every element,
+    the others (near 0) none."""
+    import torch
+
+    from harl_tpu_torch.logging.logger import TrainLogger
+
+    argv = [*_argv("halfcheetah_6x1_hasac"), *TINY_OFF, "--platform", "cpu"]
+    args, algo_args, env_args = train.resolve_args(argv)
+    runner = OffPolicyRunner(args, algo_args, env_args, device="cpu")
+    state = runner.init_state(1)
+    with torch.no_grad():
+        head = state.actors[1].net.log_std
+        head.weight.zero_()
+        head.bias.fill_(-10.0)
+    logger = TrainLogger(args, algo_args, env_args, runner.n_agents)
+    with parity.Instruments("cpu") as ins:
+        state = runner.warmup_block(state)
+        state, _ = runner.train_block(state)
+        logger.log_episode({"steps": 1})
+        logger.log_episode({"steps": 2})     # no update between: nothing counted
+    shares = ins.learners[0]["log_std_below_min"]
+    assert shares[1] == 1.0 and shares[0] == shares[2] == 0.0
+    assert ins.learners[1]["log_std_below_min"] == [None] * 6
+    assert ins.pending is None
 
 
 def test_table_card_column_says_ranks_and_cards(tmp_path):

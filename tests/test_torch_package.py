@@ -110,7 +110,7 @@ def test_learning_parity_script_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["6"]
+    assert out.stdout.split() == ["10"]
 
 
 def test_replay_scale_script_imports_without_jax():

@@ -226,25 +226,24 @@ def _replayed_rank(mesh, queue, weights):
                 mismatch=mesh.replica_mismatch(common.replica_tensors(state)))
 
 
-def test_two_ranks_match_jax_on_a_two_device_mesh():
-    _match_jax_on_a_mesh(2)
+def test_two_ranks_match_jax_on_a_two_device_mesh(jax_iteration_draws):
+    _match_jax_on_a_mesh(2, *jax_iteration_draws)
 
 
-def test_four_ranks_match_jax_on_a_four_device_mesh():
+def test_four_ranks_match_jax_on_a_four_device_mesh(jax_iteration_draws):
     """Two envs a rank: JAX's four-device CPU mesh against four gloo ranks."""
-    _match_jax_on_a_mesh(4)
+    _match_jax_on_a_mesh(4, *jax_iteration_draws)
 
 
-def _match_jax_on_a_mesh(world):
-    """One HAPPO iteration at the global batch JB on ``world`` ranks, with
-    the JAX draws replayed, against JAX's ``_train_iteration`` on a mesh of
-    ``world`` CPU devices (``tests/conftest.py`` gives eight)."""
+@pytest.fixture(scope="module")
+def jax_iteration_draws():
+    """The JAX runner and state both mesh tests start from, its weights as
+    the port's state dicts, and the draws of its one iteration, made once."""
     import jax
 
-    from harl_tpu.parallel.mesh import make_mesh, shard_train_state
     from harl_tpu.runners.on_policy import OnPolicyRunner as JRunner
     from harl_tpu_torch.utils import convert
-    from tests.test_torch_runner import DATA_ATOL, DATA_RTOL, PARAM_ATOL, PARAM_RTOL, _perms
+    from tests.test_torch_runner import _perms
     from tests.torch_replay import reset_noise, step_reset_noise
 
     algo_args, env_args = _jax_configs()
@@ -271,6 +270,18 @@ def _match_jax_on_a_mesh(world):
         key, k_up = jax.random.split(key)
         queue["perms"].extend(_perms(k_up, 2))
     queue["perms"].extend(_perms(k_critic, 2))
+    return jr, js, weights, queue
+
+
+def _match_jax_on_a_mesh(world, jr, js, weights, queue):
+    """One HAPPO iteration at the global batch JB on ``world`` ranks, with
+    the JAX draws replayed, against JAX's ``_train_iteration`` on a mesh of
+    ``world`` CPU devices (``tests/conftest.py`` gives eight)."""
+    import jax
+
+    from harl_tpu.parallel.mesh import make_mesh, shard_train_state
+    from harl_tpu_torch.utils import convert
+    from tests.test_torch_runner import DATA_ATOL, DATA_RTOL, PARAM_ATOL, PARAM_RTOL
 
     # JAX's data parallelism: the state sharded over two devices, returns
     # by the associative scan, as OnPolicyRunner.run(mesh=…) sets them
