@@ -28,7 +28,9 @@ R = I + [r]ₓ as in the JAX env's blend. The 14×14 system is assembled and
 solved (``torch.linalg.solve_ex``, which does not wait on the device) in
 float64 (``substep``). Constants are computed in float64 with numpy and
 stored in float32; the rest of the arithmetic is float32, so the port
-agrees with the JAX env to float32 rounding.
+agrees with the JAX env to float32 rounding. The sums over the points, the
+contacts and the rotations' axes that a batched matmul would round by the
+batch's width on the card are ``fixed_sum``'s.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from harl_tpu_torch.envs.core import TimeStep
+from harl_tpu_torch.envs.mamujoco_jax.fixed_sum import fixed_sum
 from harl_tpu_torch.envs.mamujoco_jax.planar import _uniform
 from harl_tpu_torch.utils import spaces
 
@@ -306,7 +309,7 @@ class AntDynamics:
         a_bias = ∂(J q̇)/∂q · q̇ (X, P, 3) for q, q̇ (X, dof)."""
         X = q.shape[0]
         R, dR, Rdd = self.root(q[:, 3:6], qd[:, 3:6])
-        Rd = torch.einsum("xiab,xi->xab", dR, qd[:, 3:6])
+        Rd = fixed_sum(dR * qd[:, 3:6, None, None], 1)
         th, ta = q[:, self.q_hip], q[:, self.q_ankle]      # (X, legs)
         sh, ch, sa, ca = (x[..., None, None] for x in (torch.sin(th), torch.cos(th),
                                                          torch.sin(ta), torch.cos(ta)))
@@ -316,7 +319,7 @@ class AntDynamics:
         dra, ddra = ca * self.ka + sa * self.ka2, -sa * self.ka + ca * self.ka2
         # per point, through its leg's rotations
         g = lambda m: m[:, self.legs]                                   # (X, P, 3, 3)
-        mv = lambda m, v: torch.einsum("xpab,xpb->xpa", m, v)
+        mv = lambda m, v: fixed_sum(m * v[:, :, None], 3)
         c = self.pc.expand(X, -1, -1)
         b = self.pb.expand(X, -1, -1)
         ra_c, dra_c, ddra_c = mv(g(ra), c), mv(g(dra), c), mv(g(ddra), c)
@@ -351,7 +354,7 @@ class AntDynamics:
         the JAX env twice as fast as the JAX env drifts from float64."""
         p, J, a_bias = self.kinematics(q, qd)
         Jc, cpos = J[:, self.contact_idx], p[:, self.contact_idx]
-        v = torch.einsum("xpcj,xj->xpc", Jc, qd)
+        v = fixed_sum(Jc * qd[:, None, None], 3)
         pen = torch.clamp(self.contact_radii - cpos[..., 2], min=0.0)
         N = CONTACT_K * pen
         vt = torch.sqrt(v[..., 0] ** 2 + v[..., 1] ** 2) + FRICTION_VREG
@@ -362,17 +365,19 @@ class AntDynamics:
         # float64 from here to the solve
         J, a_bias, Jc, m = J.double(), a_bias.double(), Jc.double(), self.masses.double()
         M = self.mass_matrix(J)
-        corio = torch.einsum("p,xpci,xpc->xi", m, J, a_bias)
-        Q = -GRAVITY * torch.einsum("p,xpi->xi", m, J[:, :, 2, :])
+        X, dof = q.shape
+        mJ = m[:, None, None] * J                                        # (X, P, 3, dof)
+        corio = fixed_sum((mJ * a_bias[..., None]).reshape(X, -1, dof), 1)
+        Q = -GRAVITY * fixed_sum(mJ[:, :, 2], 1)
         Q = torch.cat([Q[:, :6], Q[:, 6:] + GEAR * tau.double() - LIMIT_K * over.double()], dim=1)
         d_joint = JOINT_DAMPING + LIMIT_C * outside.double()
         D = torch.diag_embed(torch.cat([torch.zeros_like(d_joint[:, :6]), d_joint], dim=1))
         # ground contacts: penalty normal + implicit 2-D Coulomb friction
         Jz = Jc[:, :, 2]
-        Q = Q + torch.einsum("xp,xpj->xj", N.double(), Jz)
+        Q = Q + fixed_sum(N.double()[..., None] * Jz, 1)
         D = D + CONTACT_C * torch.einsum("xp,xpi,xpj->xij", (pen > 0.0).double(), Jz, Jz)
         D = D + torch.einsum("xp,xpci,xpcj->xij", ct.double(), Jc[:, :, :2], Jc[:, :, :2])
-        rhs = torch.einsum("xij,xj->xi", M, qd.double()) + DT * (Q - corio)
+        rhs = fixed_sum(M * qd.double()[:, None], 2) + DT * (Q - corio)
         qd_new = torch.linalg.solve_ex(M + DT * D, rhs)[0].float()
         qd_new = torch.clamp(qd_new, -100.0, 100.0)
         return q + DT * qd_new, qd_new, N.sum(dim=1)

@@ -13,7 +13,10 @@ one device:
 with the closed-form kinematics of the JAX package's batch form
 (``_kin_analytic_b``, ``_substep_b``), the batch as the leading dimension,
 and the same unrolled Gauss–Jordan solve (no pivoting: M + dt·D is SPD).
-Ground contact is the same soft-penalty model on capsule spheres.
+Ground contact is the same soft-penalty model on capsule spheres. The sums
+over the term table, the bodies and the contacts that a batched matmul
+would round by the batch's width on the card are ``fixed_sum``'s, so an
+env's step does not depend on how many envs share its batch.
 
 The cheetah never terminates: its episodes end by truncation at
 ``episode_limit``. Walker2d and Hopper earn a healthy reward and terminate
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from harl_tpu_torch.envs.core import TimeStep
+from harl_tpu_torch.envs.mamujoco_jax.fixed_sum import fixed_sum
 from harl_tpu_torch.utils import spaces
 
 GRAVITY = 9.81
@@ -335,9 +339,14 @@ class PlanarDynamics:
         self.kin_Gt = f(G[tb])
         self.kin_cb = torch.as_tensor(cb, device=device)
         self.kin_Gc = f(G[cb])
-        # state-independent part of the mass matrix
-        self.M_inertia = torch.einsum("b,bi,bj->ij", self.inertias, self.G_ang, self.G_ang)
-        self.eye = torch.eye(spec.dof, device=device)
+        # the kinematics' contractions over the term table as elementwise
+        # products with constants (A and G are 0 or ±1, so these are exact)
+        self.kin_AG = self.kin_A[:, :, None, None] * self.kin_Gt[None, :, None, :]  # (B,T,1,dof)
+        self.kin_A3 = self.kin_A[:, :, None]                                        # (B, T, 1)
+        # the state-independent part of the mass matrix, armature and 1e-9·I
+        M_inertia = torch.einsum("b,bi,bj->ij", self.inertias, self.G_ang, self.G_ang)
+        self.M_const = (M_inertia + torch.diag(self.armature)
+                        + 1e-9 * torch.eye(spec.dof, device=device))
 
     def _const(self, x) -> torch.Tensor:
         """float64 numpy → float32, as the JAX package stores it."""
@@ -348,19 +357,19 @@ class PlanarDynamics:
         """COM/contact positions, jacobians and Coriolis terms for a batch,
         q and qd (X, dof). Returns Jc (X,Bo,2,dof), Cc (X,Bo,2),
         cpos (X,C,2), Jp (X,C,2,dof) (planar.py:527-556, batch first)."""
-        ang = q @ self.G_ang.T                       # (X, Bo)
-        w = qd @ self.G_ang.T
+        ang = fixed_sum(q[:, None] * self.G_ang, 2)   # (X, Bo)
+        w = fixed_sum(qd[:, None] * self.G_ang, 2)
         c, s = torch.cos(ang), torch.sin(ang)
         ct, st, wt = c[:, self.kin_tb], s[:, self.kin_tb], w[:, self.kin_tb]  # (X, T)
         vx, vz = self.kin_V[:, 0], self.kin_V[:, 1]
         rot = torch.stack([ct * vx + st * vz, -st * vx + ct * vz], -1)        # (X,T,2)
         drot = torch.stack([-st * vx + ct * vz, -ct * vx - st * vz], -1)
-        Jo = torch.einsum("bt,xtc,tj->xbcj", self.kin_A, drot, self.kin_Gt)
+        Jo = fixed_sum(drot[:, None, :, :, None] * self.kin_AG, 2)           # (X,Bo,2,dof)
         Jo[:, :, 0, 0] += 1.0
         Jo[:, :, 1, 1] += 1.0
-        Co = -torch.einsum("bt,xtc->xbc", self.kin_A, rot * (wt ** 2)[..., None])
+        Co = -fixed_sum(self.kin_A3 * (rot * (wt ** 2)[..., None])[:, None], 2)
         root = torch.stack([q[:, 0], q[:, 1] + self.spec.z_off], -1)          # (X, 2)
-        origins = root[:, None] + torch.einsum("bt,xtc->xbc", self.kin_A, rot)
+        origins = root[:, None] + fixed_sum(self.kin_A3 * rot[:, None], 2)
         rx, rz = self.coms[:, 0], self.coms[:, 1]
         rc = torch.stack([c * rx + s * rz, -s * rx + c * rz], -1)             # (X,Bo,2)
         drc = torch.stack([-s * rx + c * rz, -c * rx - s * rz], -1)
@@ -383,10 +392,12 @@ class PlanarDynamics:
         spec = self.spec
         dt = spec.dt
         Jc, Cc, p, Jp = self.kin_analytic(q, qd)
-        M = torch.einsum("b,xbci,xbcj->xij", self.masses, Jc, Jc) + self.M_inertia
-        M = M + torch.diag(self.armature) + 1e-9 * self.eye
-        corio = torch.einsum("b,xbci,xbc->xi", self.masses, Jc, Cc)
-        Q = -GRAVITY * torch.einsum("b,xbi->xi", self.masses, Jc[:, :, 1])
+        X, dof = q.shape
+        mJ = self.masses[:, None, None] * Jc                                  # (X,Bo,2,dof)
+        M = fixed_sum((mJ[..., None] * Jc[..., None, :]).reshape(X, -1, dof, dof), 1)
+        M = M + self.M_const
+        corio = fixed_sum((mJ * Cc[..., None]).reshape(X, -1, dof), 1)
+        Q = -GRAVITY * fixed_sum(mJ[:, :, 1], 1)
         Q = torch.cat([Q[:, :3], Q[:, 3:] + self.gears * tau], dim=1)
         if root_force is not None:
             Q = torch.cat([Q[:, :2] + root_force, Q[:, 2:]], dim=1)
@@ -395,12 +406,12 @@ class PlanarDynamics:
         outside = (over != 0.0).to(q.dtype)
         Q = Q - spec.limit_stiffness * over
         D = torch.diag_embed(self.joint_damp + spec.limit_damping * outside)
-        v = torch.einsum("xpcj,xj->xpc", Jp, qd)
+        v = fixed_sum(Jp * qd[:, None, None], 3)                            # (X, C, 2)
         pen = torch.clamp(self.crad - p[:, :, 1], min=0.0)                  # (X, C)
         active = (pen > 0.0).to(q.dtype)
         N = spec.contact_stiffness * pen
         Jn, Jt = Jp[:, :, 1], Jp[:, :, 0]
-        Q = Q + torch.einsum("xp,xpj->xj", N, Jn)
+        Q = Q + fixed_sum(N[..., None] * Jn, 1)
         D = D + spec.contact_damping * torch.einsum("xp,xpi,xpj->xij", active, Jn, Jn)
         ct = self.cmu * N / (torch.abs(v[:, :, 0]) + spec.friction_vreg)
         D = D + torch.einsum("xp,xpi,xpj->xij", ct, Jt, Jt)

@@ -22,9 +22,10 @@ with joint torque k acting +1 on link k+1 and −1 on link k, q̇′ clipped to
 ±100. The kinematics are float32; the (L+2)×(L+2) system is assembled and
 solved in float64 and q̇′ rounded once (``substep``): the JAX env's own
 float32 substep lands farther from its float64 substep than the port does
-(``tests/test_torch_swimmer.py``). Team reward: forward velocity of the
-head's x minus 1e-4·Σ τ²; episodes end by truncation only, so every done
-is a ``bad_transition``. Per-agent obs are standardized concat(state,
+(``tests/test_torch_swimmer.py``). The sums over the links are
+``fixed_sum``'s, so a row does not depend on the batch's width. Team
+reward: forward velocity of the head's x minus 1e-4·Σ τ²; episodes end by
+truncation only, so every done is a ``bad_transition``. Per-agent obs are standardized concat(state,
 one-hot id) with the population std, share_obs = (θ, q̇).
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from harl_tpu_torch.envs.core import TimeStep
+from harl_tpu_torch.envs.mamujoco_jax.fixed_sum import fixed_sum
 from harl_tpu_torch.envs.mamujoco_jax.planar import _uniform
 from harl_tpu_torch.utils import spaces
 
@@ -84,7 +86,8 @@ class SwimmerDynamics:
         J[:, :, 0, 2:] = -(self.w * (LINK_LEN * s)[:, None, :])
         J[:, :, 1, 2:] = self.w * (LINK_LEN * c)[:, None, :]
         w2 = qd[:, 2:] ** 2
-        bias = -LINK_LEN * torch.stack([(w2 * c) @ self.w.T, (w2 * s) @ self.w.T], dim=-1)
+        bias = -LINK_LEN * torch.stack([fixed_sum((w2 * c)[:, None] * self.w, 2),
+                                        fixed_sum((w2 * s)[:, None] * self.w, 2)], dim=-1)
         return J, bias, torch.stack([c, s], dim=-1)
 
     def substep(self, q: torch.Tensor, qd: torch.Tensor, torques: torch.Tensor, dt: float):
@@ -94,13 +97,13 @@ class SwimmerDynamics:
         norm = torch.stack([-tang[..., 1], tang[..., 0]], dim=-1)
         Jt = torch.einsum("xlc,xlcj->xlj", tang, J)
         Jn = torch.einsum("xlc,xlcj->xlj", norm, J)
-        G = (DRAG_TANGENT * torch.einsum("xli,xlj->xij", Jt, Jt)
-             + DRAG_NORMAL * torch.einsum("xli,xlj->xij", Jn, Jn))
+        G = (DRAG_TANGENT * fixed_sum(Jt[..., None] * Jt[:, :, None], 1)
+             + DRAG_NORMAL * fixed_sum(Jn[..., None] * Jn[:, :, None], 1))
         M = LINK_MASS * torch.einsum("xlci,xlcj->xij", J, J) + torch.diag(self.diag_m)
-        corio = LINK_MASS * torch.einsum("xlcj,xlc->xj", J, bias)
+        corio = LINK_MASS * fixed_sum((J * bias[..., None]).flatten(1, 2), 1)
         tau = torques.double() @ self.B.T
         Q = torch.cat([torch.zeros_like(tau[:, :2]), tau], dim=1)
-        rhs = torch.einsum("xij,xj->xi", M, qd.double()) + dt * (Q - corio)
+        rhs = fixed_sum(M * qd.double()[:, None], 2) + dt * (Q - corio)
         qd_new = torch.linalg.solve_ex(M + dt * G, rhs)[0].float()
         qd_new = torch.clamp(qd_new, -JOINT_LIMIT, JOINT_LIMIT)
         return q + dt * qd_new, qd_new

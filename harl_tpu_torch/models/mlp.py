@@ -85,9 +85,54 @@ def variance_scaling_(w: torch.Tensor, scale: float, mode: str, distribution: st
     return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
+class _RowProduct(torch.autograd.Function):
+    """``x @ w.T`` for 2-D ``x``: each row its own one-row product, summed in
+    float64 and rounded once to ``x``'s dtype.
+
+    A batched product over the rows gives every row the same kernel, so a
+    row's value does not depend on how many rows share the call; the
+    float64 sum of the (exact) float32 products makes it the same whatever
+    kernel or order the BLAS picks, on any host. The weight's gradient is a
+    sum over the rows and stays one GEMM; the input's gradient is a row
+    product again, so double backward (HATRPO's Fisher-vector products)
+    stays row by row too.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        rows = torch.bmm(x.double().unsqueeze(1), w.double().t().expand(x.shape[0], -1, -1))
+        return rows.squeeze(1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()      # a broadcast gradient (of a sum) has stride 0
+        return _RowProduct.apply(g, w.t()), g.t() @ x
+
+
+class RowLinear(nn.Linear):
+    """``nn.Linear`` whose rows on the CPU do not depend on the batch's width.
+
+    MKL picks its GEMM kernel by the number of rows, so a row's sums
+    round apart between widths (a lone row against the same row among
+    many, and at many widths for a one-column head). A data-parallel rank
+    holding one env would then compute its rows apart from the one-rank
+    run holding two. On the CPU every row goes through ``_RowProduct``
+    instead; on the card the layer is cuBLAS's ``F.linear``, as before.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            return F.linear(x, self.weight, self.bias)
+        rows = x.reshape(-1, self.in_features)
+        out = _RowProduct.apply(rows, self.weight) + self.bias
+        return out.reshape(*x.shape[:-1], self.out_features)
+
+
 def make_linear(in_dim: int, out_dim: int, init, device, generator) -> nn.Linear:
     """Linear layer with ``init`` on the weight and a zero bias."""
-    layer = nn.Linear(in_dim, out_dim, device=device)
+    layer = RowLinear(in_dim, out_dim, device=device)
     with torch.no_grad():
         init(layer.weight, generator)
         layer.bias.zero_()

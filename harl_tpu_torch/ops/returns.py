@@ -87,13 +87,19 @@ def _check_impl(impl: Optional[str]) -> None:
 def masked_mean_std(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-9,
                     mesh: Mesh = LOCAL) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and population std (ddof=0, like np.nanstd) over mask≠0 of
-    every rank's rows (two passes, one all-reduce each)."""
-    mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    total, count = mesh.all_reduce_sum([(x * mask).sum(), mask.sum()])
+    every rank's rows (two passes, one all-reduce each).
+
+    The sums run in float64 and the results round back to ``x``'s dtype:
+    the order of the sums (a rank's rows, then the all-reduce over the
+    ranks) moves them far less than a float32 ulp, so W ranks round to
+    the one-rank run's values."""
+    x64 = x.double()
+    mask = torch.broadcast_to(mask, x.shape).to(torch.float64)
+    total, count = mesh.all_reduce_sum([(x64 * mask).sum(), mask.sum()])
     denom = torch.clamp(count, min=eps)
     mean = total / denom
-    (sq,) = mesh.all_reduce_sum([(((x - mean) ** 2) * mask).sum()])
-    return mean, torch.sqrt(sq / denom)
+    (sq,) = mesh.all_reduce_sum([(((x64 - mean) ** 2) * mask).sum()])
+    return mean.to(x.dtype), torch.sqrt(sq / denom).to(x.dtype)
 
 
 def normalize_advantages_masked(advantages: torch.Tensor, active_masks: torch.Tensor,

@@ -20,6 +20,7 @@ then a summary of the two roots side by side.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import statistics
@@ -74,6 +75,30 @@ def one_turn(root: str, shape_spec: str, iterations: int) -> None:
                       "env_steps_per_s": steps}), flush=True)
 
 
+def run_turns(script: str, a: str, b: str, argv: list) -> list:
+    """``script --one ROOT *argv`` for the roots A, B, B, A, each a process
+    of its own; prints and returns each turn's JSON line."""
+    turns = []
+    for root in (a, b, b, a):
+        out = subprocess.run([sys.executable, script, "--one", root, *argv],
+                             capture_output=True, text=True, timeout=900)
+        sys.stderr.write(out.stderr)
+        if out.returncode != 0:
+            raise SystemExit(f"turn on {root} failed ({out.returncode})")
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        turns.append(json.loads(line))
+    return turns
+
+
+def print_summary(turns: list, a: str, b: str, label: str, get, fmt: str = "{:.3f}") -> None:
+    """One line: ``get`` of each turn, by root, and each root's median."""
+    vals = {root: [get(t) for t in turns if t["root"] == root] for root in (a, b)}
+    print(f"{label}: " + "; ".join(
+        f"{root} {' '.join(fmt.format(v) for v in vs)} (median {fmt.format(statistics.median(vs))})"
+        for root, vs in vals.items()), flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+")
@@ -85,24 +110,9 @@ def main(argv) -> int:
         one_turn(args.roots[0], args.shapes, args.iterations)
         return 0
     a, b = args.roots
-    turns = []
-    for root in (a, b, b, a):
-        out = subprocess.run([sys.executable, __file__, "--one", root, "--shapes", args.shapes,
-                              "--iterations", str(args.iterations)],
-                             capture_output=True, text=True, timeout=900)
-        sys.stderr.write(out.stderr)
-        if out.returncode != 0:
-            raise SystemExit(f"turn on {root} failed ({out.returncode})")
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        turns.append(json.loads(line))
-
-    def summary(label, get, fmt="{:.3f}"):
-        vals = {root: [get(t) for t in turns if t["root"] == root] for root in (a, b)}
-        print(f"{label}: " + "; ".join(
-            f"{root} {' '.join(fmt.format(v) for v in vs)} (median {fmt.format(statistics.median(vs))})"
-            for root, vs in vals.items()), flush=True)
-
+    turns = run_turns(__file__, a, b, ["--shapes", args.shapes,
+                                       "--iterations", str(args.iterations)])
+    summary = functools.partial(print_summary, turns, a, b)
     for name in ("gae", "discounted_returns"):
         for i, shape in enumerate(turns[0]["timing"][name]["shapes"]):
             for key in ("ms", "ms_cold", "host_us", "sync_us"):

@@ -9,9 +9,16 @@ free on each side at the planar tolerance (rtol 1e-4, atol 2e-4,
 
 Longer free runs drift apart as float32 rounding is amplified through the
 contacts, as Walker2d's do (ROADMAP.md, Queue C): over 20 steps of this run
-the worst element reaches 1.65 of the tolerance at step 16, where the JAX
-env's own float32 run drifts from its float64 run by up to 0.68 of it.
+the worst element reaches 1.27 of the tolerance at step 18 (1.65 at step 16
+when the physics contracted through cuBLAS), where the JAX env's own
+float32 run drifts from its float64 run by up to 0.68 of it; over the 12
+steps held it reaches 0.70.
+
+The JAX reference runs share one jitted substep (``_jax_substep``): the
+free run's and the auto-reset's steps run op by op around it, where a
+jitted step would compile all five substeps again for each.
 """
+import dataclasses
 import functools
 
 import jax
@@ -48,11 +55,27 @@ def _envs(conf):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_substep():
+    """The JAX Ant's substep, jitted once a file."""
+    return jax.jit(jant.AntDynamics()._substep)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SharedSubstep(jant.AntDynamics):
+    """The JAX Ant's dynamics, its substep the one jitted ``_jax_substep``."""
+
+    def _substep(self, q, qd, tau):
+        return _jax_substep()(q, qd, tau)
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_fns(conf):
-    """The JAX env's jitted, vmapped reset and step (compiled once a file)."""
-    jenv = jant.make_ant({"scenario": "Ant-v2", "agent_conf": conf})
-    return (jax.jit(jax.vmap(jenv.reset)),
-            jax.jit(jax.vmap(lambda s, a: jenv.step(s, a, None))))
+    """The JAX env's jitted, vmapped reset and its vmapped step, whose five
+    substeps go through one jitted substep, compiled once for every JAX
+    reference run of this file; the rest of the step runs op by op."""
+    jenv = dataclasses.replace(jant.make_ant({"scenario": "Ant-v2", "agent_conf": conf}),
+                               dyn=_SharedSubstep())
+    return jax.jit(jax.vmap(jenv.reset)), jax.vmap(lambda s, a: jenv.step(s, a, None))
 
 
 def _port_state(js) -> tant.AntState:

@@ -7,6 +7,9 @@ imports nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -615,3 +618,25 @@ def test_fp_restore_on_the_card_keeps_the_ring_in_place(device, tmp_path):
     assert restored.buffer.cur_size == saved["cur_size"] == 60
     for a, b in zip(restored.buffer.tensors(), ring_columns(saved.get)):
         assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+# ------------------------------------ env rows whatever the batch's width
+_WIDTH_SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "torch_planar_width.py"
+_width_spec = importlib.util.spec_from_file_location("torch_planar_width", _WIDTH_SCRIPT)
+width_check = importlib.util.module_from_spec(_width_spec)
+_width_spec.loader.exec_module(width_check)
+
+
+@pytest.mark.parametrize("name", list(width_check.SCENARIOS))
+def test_env_step_rows_do_not_depend_on_the_batch_width(device, name):
+    """One ``auto_reset_step`` of every MAMuJoCo-JAX scenario from 4,096
+    warmed envs (busiest first, ``scripts/torch_planar_width.py``): the
+    head 10 rows of every output are bitwise equal at widths 10, 16, 20,
+    256, 512, 2,048 and 4,096."""
+    env, *inputs = width_check.warm_inputs(name, device, 4096, 20)
+    base = width_check.step_rows(env, inputs, width_check.ROWS, device)
+    for w in (16, 20, 256, 512, 2048, 4096):
+        rows = width_check.step_rows(env, inputs, w, device)
+        assert len(rows) == len(base)
+        for i, (a, b) in enumerate(zip(rows, base)):
+            assert width_check.same_bits(a, b), f"{name}: output {i} apart at width {w}"

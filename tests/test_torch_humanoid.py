@@ -20,7 +20,10 @@ A reset from replayed draws and a few env steps of gentle actions run free
 on each side at the planar tolerance (rtol 1e-4, atol 2e-4,
 ``tests/test_torch_planar.py``), with the worst element's share of the
 tolerance printed; dones and truncations are equal. The standup
-reset lies far from the blend, pitched −π/2.
+reset lies far from the blend, pitched −π/2. The JAX reference runs share
+one jitted substep (``shared_substep``): the Humanoid's and the
+HumanoidStandup's steps run op by op around it, where a jitted step would
+compile all five substeps again for each scenario.
 """
 import functools
 
@@ -59,12 +62,29 @@ def _args(scenario="Humanoid-v2", **kw):
     return {"scenario": scenario, "agent_conf": "17x1", **kw}
 
 
+_SUBSTEP = jh._substep
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_substep():
+    """The JAX env's substep, jitted once a file."""
+    return jax.jit(_SUBSTEP)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_fns(items):
-    """The JAX env's jitted, vmapped reset and step (compiled once a file)."""
+    """The JAX env's jitted, vmapped reset and its vmapped step. Run under
+    ``shared_substep`` the step's five substeps go through one jitted
+    substep, compiled once for every JAX reference run of this file (the
+    Humanoid's and the HumanoidStandup's), and the rest of the step runs
+    op by op."""
     jenv = jh.make_humanoid(dict(items))
-    return (jax.jit(jax.vmap(jenv.reset)),
-            jax.jit(jax.vmap(lambda s, a: jenv.step(s, a, None))))
+    return jax.jit(jax.vmap(jenv.reset)), jax.vmap(lambda s, a: jenv.step(s, a, None))
+
+
+@pytest.fixture
+def shared_substep(monkeypatch):
+    monkeypatch.setattr(jh, "_substep", _jax_substep())
 
 
 def humanoid_reset_noise(keys):
@@ -167,7 +187,7 @@ def test_substep_matches_jax_in_float64():
 
 
 @pytest.mark.parametrize("scenario,steps", [("Humanoid-v2", 12), ("HumanoidStandup-v2", 6)])
-def test_reset_and_free_steps_match_jax(scenario, steps):
+def test_reset_and_free_steps_match_jax(scenario, steps, shared_substep):
     """A reset from replayed draws, then env steps of gentle actions (±0.1),
     each side on its own state; the standup reward is ~q_z/dt lying down."""
     args = _args(scenario, obs_standardize=False)
@@ -197,7 +217,7 @@ def test_reset_and_free_steps_match_jax(scenario, steps):
         np.testing.assert_allclose(r, ts.q[:, 2].numpy() / th.DT, rtol=0.05)
 
 
-def test_unhealthy_termination_and_auto_reset_match_jax():
+def test_unhealthy_termination_and_auto_reset_match_jax(shared_substep):
     """A torso lifted past the 2.0 height bound, a tipped one (|rotation vector| past
     1.9π), healthy ones and ones at the episode limit, through the
     auto-reset: dones where the torso failed and no truncation, truncations

@@ -274,3 +274,42 @@ def test_recurrent_policy_and_vnet_match_flax(seq):
                                                         jnp.asarray(x[0])), 10))
     assert {"rnn.wi0", "rnn.wh0", "rnn.bi0", "rnn.bh0", "rnn.norm.weight",
             "act.head.weight"} <= set(sd) and "act.log_std" not in sd
+
+
+@pytest.mark.parametrize("in_dim,out_dim", [(19, 8), (8, 1), (64, 64), (256, 256)])
+def test_linear_rows_do_not_depend_on_the_batch_width(in_dim, out_dim):
+    """A layer's rows and its input's gradient rows on the CPU are bitwise
+    the same at every width from 1 to 64 rows (MKL's ``F.linear`` picks
+    its kernel by the number of rows and rounds a lone row apart), and
+    equal ``F.linear`` to float32 rounding."""
+    from harl_tpu_torch.models.mlp import make_linear
+
+    g = torch.Generator().manual_seed(in_dim)
+    layer = make_linear(in_dim, out_dim, lambda w, gen: torch.nn.init.normal_(w, generator=gen),
+                        "cpu", g)
+    with torch.no_grad():
+        layer.bias.normal_(generator=g)
+    x = torch.randn(64, in_dim, generator=g, requires_grad=True)
+    dy = torch.randn(64, out_dim, generator=g)
+    full = layer(x)
+    (dx,) = torch.autograd.grad(full, x, dy)
+    for m in range(1, 64):
+        xm = x.detach()[:m].requires_grad_()
+        ym = layer(xm)
+        (dxm,) = torch.autograd.grad(ym, xm, dy[:m])
+        assert torch.equal(ym, full[:m]) and torch.equal(dxm, dx[:m]), m
+    plain = torch.nn.functional.linear(x, layer.weight, layer.bias)
+    torch.testing.assert_close(full, plain, rtol=1e-5, atol=1e-5 * in_dim ** 0.5)
+    assert layer(x.detach()[:5, None]).shape == (5, 1, out_dim)
+
+
+def test_row_product_gradients():
+    """The row product's first and second derivatives (HATRPO's
+    Fisher-vector products differentiate twice), in float64."""
+    from harl_tpu_torch.models.mlp import _RowProduct
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(5, 7, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(3, 7, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(_RowProduct.apply, (x, w))
+    assert torch.autograd.gradgradcheck(_RowProduct.apply, (x, w))
