@@ -5,7 +5,8 @@ with several seeds, and hold each run against its record.
 
     python scripts/torch_learning_parity.py [--runs NAME,...] [--seeds 1,2,3]
         [--jobs N] [--ranks N] [--iterations N] [--platform cpu]
-        [--out validation_torch] [--log_dir DIR] [--table] [-- EXTRA ARGV]
+        [--out validation_torch] [--log_dir DIR] [--table] [--jax]
+        [--spread NAME] [-- EXTRA ARGV]
 
 Run it from the root of the repository (the run table's paths are
 relative to it). ``RUNS`` holds one entry a run: the argv of the JAX command that produced
@@ -71,6 +72,20 @@ return's. Higher than
 the record is fine: each record is one seed. A run whose seeds did not reach a record's step is
 ``cut``. The script prints one row a run with each seed's value, the
 median, the record and the verdict, and exits non-zero if a child failed.
+
+``--jax`` trains the JAX package's runs instead, on the CPU: each (run,
+seed) is the JAX CLI (``python -m harl_tpu.train``, a child process; this
+script imports no JAX) with the record's own argv, only ``--seed`` and,
+with ``--iterations``, the budget changed, ``JAX_PLATFORMS=cpu`` and a
+compile cache of its own under ``--log_dir``; its curves and a record
+(the argv, the JAX version, the CPU's model and cores, the wall and the
+most JAX runs at once during it) go into ``--out``. ``--spread NAME``
+prints a second reading of a record beside its verdict, which it does not
+change (``SPREAD``): at each record step, the JAX values (its CPU seeds
+and the TPU record) against the port's seeds. The port is **within JAX's
+spread** at a step when its median lies in the range of the JAX values
+and the two-sided Mann-Whitney U test of its seeds against them gives p of
+at least ``SPREAD_P``; a step that a side did not reach is not measured.
 """
 from __future__ import annotations
 
@@ -352,6 +367,18 @@ def read_curves(run_dir: str) -> dict:
     return curves
 
 
+def write_curves(out_dir: str, name: str, seed: int, curves: dict) -> str:
+    """Write each curve of ``curves`` that has points into ``out_dir`` as
+    ``<name>_s<seed>_<key>.csv``; returns the stem ``<out_dir>/<name>_s<seed>``."""
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.join(out_dir, f"{name}_s{seed}")
+    for key, series in curves.items():
+        if series:
+            with open(f"{stem}_{key}.csv", "w") as f:
+                f.write("".join(f"{s},{v}\n" for s, v in series))
+    return stem
+
+
 def is_off_policy(name: str) -> bool:
     return RUNS[name]["shape"] is None
 
@@ -431,12 +458,7 @@ def run_one(name: str, seed: int, platform: str, out_dir: str, log_dir: str,
                    avail_rows)
         return {}
     curves = read_curves(run_dir)
-    os.makedirs(out_dir, exist_ok=True)
-    stem = os.path.join(out_dir, f"{name}_s{seed}")
-    for key, series in curves.items():
-        if series:
-            with open(f"{stem}_{key}.csv", "w") as f:
-                f.write("".join(f"{s},{v}\n" for s, v in series))
+    stem = write_curves(out_dir, name, seed, curves)
     spec = RUNS[name]
     values = dict(curves[spec["metric"]])
     rec = dict(
@@ -579,6 +601,188 @@ def table(out_dir: str, names) -> tuple:
     return "\n".join(lines), verdicts
 
 
+def jax_argv(name: str, seed: int, iterations: int, log_dir: str) -> list:
+    """The JAX CLI's argv of one seed of ``name``: the record's own, with
+    only the seed and, with ``iterations``, the budget changed, its run
+    directories under ``log_dir``."""
+    argv = list(RUNS[name]["argv"])
+    if iterations:
+        from harl_tpu_torch import train
+
+        tr = train.resolve_args(argv)[1]["train"]
+        argv[argv.index("--num_env_steps") + 1] = str(iterations * budget_of(name, tr)[1])
+    return argv + ["--seed", str(seed), "--log_dir", log_dir]
+
+
+def cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next(line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("model name"))
+    except (OSError, StopIteration):
+        import platform
+
+        return platform.processor() or "unknown"
+
+
+def jax_record(name: str, seed: int, argv: list, run_root: str, out_dir: str, wall: float,
+               concurrent: int) -> dict:
+    """Write the curves and the JSON record of one JAX CLI run whose run
+    directories are under ``run_root`` into ``out_dir``; returns the record."""
+    from importlib.metadata import version
+
+    progress = sorted(Path(run_root).glob("**/logs/progress.txt"))[-1]
+    curves = read_curves(str(progress.parent.parent))
+    stem = write_curves(out_dir, name, seed, curves)
+    spec = RUNS[name]
+    values = dict(curves[spec["metric"]])
+    # the run directories lie outside the checkout: their place is not recorded
+    argv = [a if a != run_root else "<log_dir>" for a in argv]
+    rec = dict(run=name, seed=seed, package="harl_tpu", command="python -m harl_tpu.train",
+               argv=argv, platform="cpu", jax_version=version("jax"), device=cpu_model(),
+               cores=os.cpu_count(), concurrent=concurrent, wall_s=wall,
+               env_steps=max(s for s, _ in curves[spec["metric"]]), metric=spec["metric"],
+               at_record={str(step): value_at(name, values, step)
+                          for step, _ in spec["record"]})
+    with open(f"{stem}.json", "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def run_jax(pairs: list, args) -> list:
+    """Train each (run, seed) with the JAX package's CLI on the CPU
+    (``JAX_PLATFORMS=cpu``), ``args.jobs`` at once, each in a process with
+    a compile cache of its own under ``args.log_dir``; as each ends, write
+    its curves and record (the most JAX runs alive at once during it,
+    ``concurrent``) into ``args.out``. Returns the pairs that failed."""
+    os.makedirs(args.log_dir, exist_ok=True)
+    pending, running, failed = list(pairs), [], []
+    while pending or running:
+        while pending and len(running) < args.jobs:
+            name, seed = pending.pop(0)
+            root = os.path.join(os.path.abspath(args.log_dir), f"{name}_s{seed}")
+            argv = jax_argv(name, seed, args.iterations, root)
+            env = dict(os.environ, JAX_PLATFORMS="cpu",
+                       JAX_COMPILATION_CACHE_DIR=os.path.join(root, "jax_cache"))
+            log = open(os.path.join(args.log_dir, f"{name}_s{seed}_jax.log"), "w")
+            proc = subprocess.Popen([sys.executable, "-m", "harl_tpu.train", *argv], cwd=REPO,
+                                    stdout=log, stderr=subprocess.STDOUT, env=env)
+            running.append(dict(proc=proc, log=log, name=name, seed=seed, argv=argv, root=root,
+                                t0=time.perf_counter(), concurrent=0))
+            print(f"started the JAX run {name} seed {seed}: {' '.join(argv)}", flush=True)
+        for item in running:
+            item["concurrent"] = max(item["concurrent"], len(running))
+        time.sleep(1.0)
+        for item in list(running):
+            code = item["proc"].poll()
+            if code is None:
+                continue
+            running.remove(item)
+            item["log"].close()
+            name, seed = item["name"], item["seed"]
+            if code != 0:
+                with open(item["log"].name) as f:
+                    print(f"{name} seed {seed} (JAX) exited {code}:\n"
+                          + "\n".join(f.read().splitlines()[-30:]), flush=True)
+                failed.append((name, seed))
+                continue
+            rec = jax_record(name, seed, item["argv"], item["root"], args.out,
+                             time.perf_counter() - item["t0"], item["concurrent"])
+            print(f"{name} seed {seed} (JAX, CPU): {rec['wall_s']:.1f} s, "
+                  f"{rec['concurrent']} at once; at the record {rec['at_record']}", flush=True)
+    return failed
+
+
+# a second reading of a record (``--spread``), beside its verdict: the JAX
+# package's own seeds on the CPU (``--jax``) with its TPU record, against
+# the port's seeds; the curves of earlier physics listed apart, outside it
+SPREAD = {
+    "halfcheetah_6x1_hasac": dict(
+        jax="validation_torch/jax_cpu_spread", port="validation_torch/repaired_physics",
+        port_label="the port, repaired physics (PR 17)",
+        apart=("PR 15's physics", ("validation_torch", "validation_torch/hasac_spread"))),
+}
+# the least two-sided Mann-Whitney U p-value of the port's seeds against JAX's
+SPREAD_P = 0.05
+
+
+def seed_curves(dirs, name: str, metric: str) -> dict:
+    """{seed: {step: value}} from the ``<name>_s<seed>_<metric>.csv`` files
+    of ``dirs``, relative to the repository's root (a seed found in two
+    directories: the first)."""
+    found = {}
+    for d in dirs:
+        for path in sorted((REPO / d).glob(f"{name}_s*_{metric}.csv")):
+            seed = path.name[len(name) + 2:-len(metric) - 5]
+            if seed.isdigit() and int(seed) not in found:
+                with open(path) as f:
+                    found[int(seed)] = {int(float(s)): float(v) for s, v in
+                                        (line.split(",") for line in f if line.strip())}
+    return dict(sorted(found.items()))
+
+
+def within_spread(port: list, jax: list) -> tuple:
+    """(the p-value, the reading) of one step: "within" JAX's spread when
+    the median of ``port`` lies in the range of ``jax`` and the two-sided
+    Mann-Whitney U test of the two gives p of at least ``SPREAD_P``, else
+    "outside"; "not measured" where a side is empty."""
+    if not port or not jax:
+        return None, "not measured"
+    from scipy.stats import mannwhitneyu
+
+    med = statistics.median(port)
+    p = float(mannwhitneyu(port, jax, alternative="two-sided").pvalue)
+    return p, "within" if min(jax) <= med <= max(jax) and p >= SPREAD_P else "outside"
+
+
+def _summary(vals: list) -> str:
+    if not vals:
+        return "—"
+    return (f"median {statistics.median(vals):.0f} [{min(vals):.0f}, {max(vals):.0f}], "
+            f"n={len(vals)}")
+
+
+def _group(values: dict) -> str:
+    """Each seed's value, then the median, range and count."""
+    if not values:
+        return "—"
+    return (", ".join(f"s{s} {v:.0f}" for s, v in values.items()) + "; "
+            + _summary(list(values.values())))
+
+
+def spread_table(name: str, spread: dict = None) -> tuple:
+    """(the markdown table, {step: reading}, whether every step measured on
+    both sides is within JAX's spread) of ``name``'s record steps. The JAX
+    values at a step are its CPU seeds' and the TPU record's; a step is
+    measured on JAX's side where a CPU seed reached it."""
+    spec, sp = RUNS[name], spread or SPREAD[name]
+    metric = spec["metric"]
+    jax = seed_curves([sp["jax"]], name, metric)
+    port = seed_curves([sp["port"]], name, metric)
+    apart_label, apart_dirs = sp["apart"]
+    apart = seed_curves(apart_dirs, name, metric)
+    lines = [f"| Step | JAX, CPU seeds (`--jax`) | JAX record (TPU, one seed) | JAX, all | "
+             f"{sp['port_label']} | Mann–Whitney p | Reading | {apart_label}, apart |",
+             "| --- | --- | --- | --- | --- | --- | --- | --- |"]
+    readings = {}
+    for step, record in spec["record"]:
+        at = {}
+        for label, curves in (("jax", jax), ("port", port), ("apart", apart)):
+            at[label] = {s: v for s, v in ((s, value_at(name, c, step)) for s, c in curves.items())
+                         if v is not None}
+        if not at["jax"] and not at["port"]:
+            continue
+        jax_all = [*at["jax"].values(), record] if at["jax"] else []
+        p, word = within_spread(list(at["port"].values()), jax_all)
+        readings[step] = word
+        lines.append(
+            f"| {step:,} | {_group(at['jax'])} | {record} | {_summary(jax_all)} | "
+            f"{_group(at['port'])} | {'—' if p is None else f'{p:.3g}'} | {word} | "
+            f"{_group(at['apart'])} |")
+    measured = [w for w in readings.values() if w != "not measured"]
+    return "\n".join(lines), readings, bool(measured) and all(w == "within" for w in measured)
+
+
 def run_children(pairs: list, args, extra: list) -> list:
     """Run each (run, seed) as child processes, one a rank (``args.ranks``),
     ``args.jobs`` runs at once, a rank's output in
@@ -657,12 +861,28 @@ def main(argv=None) -> int:
     ap.add_argument("--log_dir", default="results/parity")
     ap.add_argument("--table", action="store_true", help="print the table of --out only")
     ap.add_argument("--child", action="store_true", help="one (run, seed) here (internal)")
+    ap.add_argument("--jax", action="store_true",
+                    help="train the JAX package's runs on the CPU instead of the port's")
+    ap.add_argument("--spread", choices=tuple(SPREAD),
+                    help="print the record's spread table of the committed curves only")
     args = ap.parse_args(argv)
+    if args.spread:
+        text, readings, within = spread_table(args.spread)
+        print(text)
+        print(json.dumps({"spread": {str(s): w for s, w in readings.items()},
+                          "within_at_every_measured_step": within}))
+        return 0
     names = args.runs.split(",")
     unknown = [n for n in names if n not in RUNS]
     if unknown:
         ap.error(f"unknown runs {unknown}: {list(RUNS)}")
     seeds = [int(s) for s in args.seeds.split(",")]
+    if args.jax:
+        if extra:
+            ap.error("--jax runs the record's own argv: no words after --")
+        failed = run_jax([(n, s) for n in names for s in seeds], args)
+        print(json.dumps({"failed": failed}))
+        return 1 if failed else 0
     if args.child:
         run_one(names[0], seeds[0], args.platform, args.out, args.log_dir, args.iterations,
                 extra, args.jobs, args.ranks, min(args.ranks, args.cards))

@@ -460,3 +460,117 @@ def test_script_trains_a_run_over_two_ranks_on_the_cpu(tmp_path):
     rank1 = (tmp_path / "runs" / f"{name}_s1_rank1.log").read_text()
     assert "a rank of 2, 1 iterations" in rank1 and "T=20, b=2" in rank1
     assert "| 2 ranks on the CPU |" in out.stdout
+
+
+HASAC = "halfcheetah_6x1_hasac"
+JAX_CPU_SEEDS = sorted((ROOT / parity.SPREAD[HASAC]["jax"]).glob(f"{HASAC}_s*.json"))
+
+
+def _write_curves(where: Path, values: list, step: int = 210000) -> None:
+    """One curve a seed (1, 2, ...) in ``where``, the value at ``step``
+    and a training record 1,000 env-steps before it."""
+    for seed, value in enumerate(values, 1):
+        parity.write_curves(str(where), HASAC, seed,
+                            {"mean_episode_return": [(step - 1000, 0.0), (step, value)]})
+
+
+@pytest.mark.parametrize("jax,port,want", [
+    # the port's median inside JAX's range, p >= 0.05
+    ([1500.0, 1800.0, 2100.0, 2300.0, 1200.0], [1400.0, 1900.0, 1700.0, 2000.0], "within"),
+    # the port's median below every JAX value
+    ([1500.0, 1800.0, 2100.0, 2300.0, 1900.0], [900.0, 1000.0, 1100.0, 1600.0], "outside"),
+    # the median inside the range, but every port seed under five of the
+    # six JAX values: p < 0.05
+    ([1000.0, 5000.0, 5100.0, 5200.0, 5300.0],
+     [1100.0, 1150.0, 1200.0, 1250.0, 1300.0, 1350.0, 1400.0, 1450.0], "outside"),
+    # a step missing on one side
+    ([], [1400.0, 1900.0], "not measured"),
+    ([1500.0, 1800.0], [], "not measured")])
+def test_spread_rule_on_made_up_curves(tmp_path, jax, port, want):
+    """The spread reading of a step: the port's median inside the range of
+    the JAX CPU seeds and the TPU record, and the two-sided Mann-Whitney U
+    p-value of the port's seeds against those six at least 0.05; a step
+    that one side did not reach is not measured, and closes nothing."""
+    from scipy.stats import mannwhitneyu
+
+    _write_curves(tmp_path / "jax", jax)
+    _write_curves(tmp_path / "port", port)
+    _write_curves(tmp_path / "apart", [1.0, 2.0])
+    spread = dict(jax=str(tmp_path / "jax"), port=str(tmp_path / "port"), port_label="port",
+                  apart=("earlier", (str(tmp_path / "apart"),)))
+    text, readings, within = parity.spread_table(HASAC, spread)
+    assert readings == {210000: want} and within == (want == "within")
+    record = dict(parity.RUNS[HASAC]["record"])[210000]
+    rows = [r for r in text.splitlines() if r.startswith("| 210,000 |")]
+    assert len(rows) == 1 and f"| {want} |" in rows[0] and f"| {record} |" in rows[0]
+    assert "s2 2; median 2 [1, 2], n=2" in rows[0]      # the earlier physics, apart
+    if jax and port:
+        p = mannwhitneyu(port, [*jax, record], alternative="two-sided").pvalue
+        assert f"| {p:.3g} |" in rows[0]
+        assert (want == "within") == (min(jax + [record]) <= statistics.median(port)
+                                      <= max(jax + [record]) and p >= parity.SPREAD_P)
+
+
+def test_spread_table_on_the_committed_curves():
+    """``--spread halfcheetah_6x1_hasac`` on the committed curves: JAX's
+    CPU seeds 1-5 and the TPU record at 210k, 410k and 610k, the port's
+    repaired-physics seeds 1-8 to 410k and 1-3 to 610k, PR 15's physics
+    seeds 1-5 apart; 810k is not measured on JAX's side; each reading is
+    the rule's on those values."""
+    from scipy.stats import mannwhitneyu
+
+    sp = parity.SPREAD[HASAC]
+    text, readings, within = parity.spread_table(HASAC)
+    assert list(readings) == [210000, 410000, 610000, 810000]
+    assert readings[810000] == "not measured"
+    record = dict(parity.RUNS[HASAC]["record"])
+    curves = {k: parity.seed_curves(dirs, HASAC, "mean_episode_return")
+              for k, dirs in (("jax", [sp["jax"]]), ("port", [sp["port"]]),
+                              ("apart", sp["apart"][1]))}
+    for step, seeds in ((210000, (8, 5, 5)), (410000, (8, 5, 5)), (610000, (3, 5, 5))):
+        port = [c[step] for c in curves["port"].values() if step in c]
+        jax = [c[step] for c in curves["jax"].values() if step in c]
+        apart = [c[step] for c in curves["apart"].values() if step in c]
+        assert (len(port), len(jax), len(apart)) == seeds
+        jax.append(record[step])
+        p = mannwhitneyu(port, jax, alternative="two-sided").pvalue
+        inside = min(jax) <= statistics.median(port) <= max(jax)
+        assert readings[step] == ("within" if inside and p >= parity.SPREAD_P else "outside")
+        row = next(r for r in text.splitlines() if r.startswith(f"| {step:,} |"))
+        assert f"| {p:.3g} |" in row and f"n={len(port)}" in row
+    assert within == all(readings[s] == "within" for s in (210000, 410000, 610000))
+    out = subprocess.run([sys.executable, str(SCRIPT), "--spread", HASAC], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.splitlines()[-1]) == {
+        "spread": {str(s): w for s, w in readings.items()},
+        "within_at_every_measured_step": within}
+
+
+@pytest.mark.parametrize("path", JAX_CPU_SEEDS, ids=lambda p: p.stem)
+def test_jax_cpu_seeds_are_the_record_run(path):
+    """Each committed JAX CPU seed ran the record's own command line with
+    only the seed and the budget changed (and its run directories placed
+    outside the checkout), to 610k at least, on the CPU; its curve holds
+    the values at the record's steps."""
+    rec = json.loads(path.read_text())
+    name, seed = rec["run"], rec["seed"]
+    got = jax_resolve([str(ROOT / a) if a.startswith("tuned_configs/") else a
+                       for a in rec["argv"]])
+    want = jax_resolve(_argv(name, seed)[:-2])       # without the port's --exp_name
+    budget = got[1]["train"]["num_env_steps"]
+    assert got[1]["seed"] == {"seed_specify": True, "seed": seed}
+    assert got[1]["logger"]["log_dir"] == "<log_dir>"
+    got[1]["train"]["num_env_steps"] = want[1]["train"]["num_env_steps"]
+    got[1]["logger"]["log_dir"] = want[1]["logger"]["log_dir"]
+    assert got == want
+    tr = want[1]["train"]
+    step = tr["n_rollout_threads"] * tr["train_interval"]
+    assert tr["warmup_steps"] + budget >= 610000 and budget % step == 0
+    assert rec["argv"] == parity.jax_argv(name, seed, budget // step, "<log_dir>")
+    assert rec["command"] == "python -m harl_tpu.train" and rec["platform"] == "cpu"
+    assert rec["jax_version"] and rec["device"] and rec["cores"] >= 1 and rec["wall_s"] > 0
+    assert rec["concurrent"] >= 1 and rec["env_steps"] == tr["warmup_steps"] + budget
+    curve = parity.seed_curves([parity.SPREAD[name]["jax"]], name, rec["metric"])[seed]
+    for s, _ in parity.RUNS[name]["record"]:
+        assert rec["at_record"][str(s)] == curve.get(s)
